@@ -1,0 +1,49 @@
+"""Camera math in the 3DGS convention (numpy; a copy of
+instag_tpu/utils/graphics.py so the port depends on nothing of the JAX
+package). Matrices are stored *transposed* (row-vector convention):
+``p_hom = [x y z 1] @ M`` with ``full_proj = world_view^T @ projection^T``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+def world_to_view(R: np.ndarray, t: np.ndarray,
+                  translate: np.ndarray | None = None,
+                  scale: float = 1.0) -> np.ndarray:
+    """World->camera 4x4. R is the camera-to-world rotation as stored in the
+    dataset; t the world->camera translation."""
+    Rt = np.zeros((4, 4), dtype=np.float64)
+    Rt[:3, :3] = R.transpose()
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+
+    C2W = np.linalg.inv(Rt)
+    cam_center = C2W[:3, 3]
+    if translate is not None:
+        cam_center = (cam_center + translate) * scale
+    else:
+        cam_center = cam_center * scale
+    C2W[:3, 3] = cam_center
+    return np.linalg.inv(C2W).astype(np.float32)
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float,
+                      fovy: float) -> np.ndarray:
+    """Perspective projection, z in [0, zfar/(zfar-znear)]."""
+    tan_half_fovy = math.tan(fovy / 2)
+    tan_half_fovx = math.tan(fovx / 2)
+
+    top = tan_half_fovy * znear
+    right = tan_half_fovx * znear
+
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P

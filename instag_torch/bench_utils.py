@@ -1,6 +1,6 @@
-"""In-memory synthetic model and camera builders (counterpart of
-instag_tpu/bench_utils.py): point clouds from numpy seeds, network weights
-from ``torch.Generator`` seeds. No dataset files needed."""
+"""In-memory synthetic models, cameras and frames (counterpart of
+instag_tpu/bench_utils.py): point clouds and frames from numpy seeds,
+network weights from ``torch.Generator`` seeds. No dataset files needed."""
 
 from __future__ import annotations
 
@@ -86,3 +86,50 @@ def synthetic_motion_params(audio_extractor: str = "deepspeech",
     nets["exp"] = torch.from_numpy(np.abs(np.random.default_rng(seed + 1).normal(
         0.3, 0.2, 6)).astype(np.float32)).to(dev)
     return nets
+
+
+def synthetic_frame_batch(size: int, n_frames: int = 4, seed: int = 0,
+                          aud_dim: int = 29,
+                          device: str | torch.device = "cuda"):
+    """A FrameBatch at adaptation-scale shapes: the JAX package's masks and
+    lips rectangles, and images, backgrounds, audio and AU vectors drawn
+    from ``numpy.random.default_rng(seed)`` in the same order, so both
+    packages see the same frames."""
+    from .train.common import FrameBatch
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cam = synthetic_camera(size, device=dev)
+    f = n_frames
+
+    def tile(x):
+        return x[None].expand((f,) + tuple(x.shape)).contiguous()
+
+    def t(x, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        return (x if dtype is None else x.to(dtype)).to(dev)
+
+    face = np.zeros((f, size, size), bool)
+    face[:, size // 4: 3 * size // 4, size // 4: 3 * size // 4] = True
+    hair = np.zeros((f, size, size), bool)
+    hair[:, size // 8: size // 4, size // 4: 3 * size // 4] = True
+    mouth = np.zeros((f, size, size), bool)
+    mouth[:, size // 2: 5 * size // 8, 3 * size // 8: 5 * size // 8] = True
+    rect = np.tile(np.array([size // 2, 5 * size // 8, 3 * size // 8,
+                             5 * size // 8], np.int32), (f, 1))
+    image = rng.integers(0, 255, (f, size, size, 3)).astype(np.uint8)
+    bg = rng.integers(0, 255, (f, size, size, 3)).astype(np.uint8)
+    auds = rng.normal(size=(f, 8, aud_dim, 16)).astype(np.float32)
+    blink = rng.uniform(0, 1, (f,)).astype(np.float32)
+    au_exp = rng.uniform(0, 1, (f, 6)).astype(np.float32)
+    return FrameBatch(
+        view_transform=tile(cam.view_transform),
+        full_proj_transform=tile(cam.full_proj_transform),
+        camera_center=tile(cam.camera_center),
+        tanfovx=cam.tanfovx.expand(f).contiguous(),
+        tanfovy=cam.tanfovy.expand(f).contiguous(),
+        image=t(image), bg=t(bg),
+        face_mask=t(face), hair_mask=t(hair), mouth_mask=t(mouth),
+        auds=t(auds), blink=t(blink), au_exp=t(au_exp),
+        lips_rect=t(rect), lhalf_rect=t(rect),
+        mouth_bound=t(np.tile(np.array([0.1, 0.9, 0.5], np.float32), (f, 1))))

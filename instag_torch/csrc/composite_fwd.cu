@@ -30,20 +30,22 @@
 // rows are staged through shared memory in batches of 256 (every thread
 // then reads the same address: a broadcast). The transmittance carry stays
 // in the log domain, as on the TPU, so contribution decisions match it at
-// the 1e-4 edge. The contribution test is monotone in k, so a pixel is
-// done at its first non-contributing splat (exact), and the CTA leaves
-// once all 256 pixels are done or the batches pass cnt[t]. float32
-// throughout; no tensor cores.
+// the 1e-4 edge. The per-splat step lives in composite_common.cuh, shared
+// with the backward, which recomputes this chain bit for bit. The
+// contribution test is monotone in k, so a pixel is done at its first
+// non-contributing splat (exact), and the CTA leaves once all 256 pixels
+// are done or the batches pass cnt[t]. float32 throughout; no tensor cores.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;   // threads per CTA
+using instag::kPix;
+using instag::kTile;
+using instag::kTMin;
 constexpr int kBatch = 256;           // splats staged per batch
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTMin = 1e-4f;
 
 template <int NV>  // NV = C + A accumulated value rows
 __global__ void __launch_bounds__(kPix)
@@ -81,26 +83,21 @@ composite_fwd_kernel(const float* __restrict__ feats,
     __syncthreads();
     if (!done) {
       for (int j = 0; j < nb; ++j) {
-        const float gx = sm[0 * kBatch + j] - txf;
-        const float gy = sm[1 * kBatch + j] - tyf;
-        const float ca = sm[2 * kBatch + j];
-        const float cb = sm[3 * kBatch + j];
-        const float cc = sm[4 * kBatch + j];
-        const float op = sm[5 * kBatch + j];
-        const float dx = xf - gx;
-        const float dy = yf - gy;
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float alpha = fminf(0.99f, op * expf(power));
-        if (!(power <= 0.f && alpha >= kAlphaMin)) continue;  // log1p(-0) = 0
-        const float l = log1pf(-alpha);
-        log_t += l;
+        const instag::SplatAlpha s = instag::splat_alpha(
+            xf, yf, __fsub_rn(sm[0 * kBatch + j], txf),
+            __fsub_rn(sm[1 * kBatch + j], tyf), sm[2 * kBatch + j],
+            sm[3 * kBatch + j], sm[4 * kBatch + j], sm[5 * kBatch + j]);
+        if (!s.ok) continue;  // log1p(-0) = 0
+        const float alpha = s.alpha;
+        const float l = instag::log_step(alpha);
+        log_t = __fadd_rn(log_t, l);
         const float t_incl = expf(log_t);
         if (!(t_incl >= kTMin)) {  // no later splat can contribute
           done = true;
           break;
         }
         const float w = t_incl * alpha / (1.f - alpha);
-        log_t_c += l;
+        log_t_c = __fadd_rn(log_t_c, l);
         wsum += w;
 #pragma unroll
         for (int c = 0; c < NV; ++c) acc[c] += w * sm[(6 + c) * kBatch + j];
@@ -155,7 +152,7 @@ int composite_fwd_launch(const void* feats, const void* cnt, void* out, int T,
   }
 }
 
-const char* composite_error_string(int err) {
+const char* composite_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -8,6 +8,8 @@ inverse of the layout map in instag_tpu/io/reference_convert.py:
   * Conv ``kernel`` [K, I, O] -> Conv1d ``weight`` [O, I, K];
   * Dense ``kernel`` [I, O]  -> Linear ``weight`` [O, I];
   * ``bias`` and hash-grid ``embeddings`` are copied as they are.
+
+The Gaussian state and the frame batch are carried field by field.
 """
 
 from __future__ import annotations
@@ -57,13 +59,36 @@ def load_motion_net(net: nn.Module, flax_params: Mapping,
 
 def gaussian_state(fields: Mapping[str, np.ndarray], alive: np.ndarray,
                    active_sh_degree: int, max_sh_degree: int,
-                   device: str | torch.device = "cuda") -> GaussianState:
-    """A GaussianState from the JAX ``GaussianParams`` fields as numpy."""
+                   device: str | torch.device = "cuda",
+                   stats: Mapping[str, np.ndarray] | None = None,
+                   spatial_lr_scale: float = 1.0) -> GaussianState:
+    """A GaussianState from the JAX ``GaussianParams`` fields as numpy.
+    ``stats`` may carry the JAX state's ``max_radii2d``, ``xyz_grad_accum``
+    and ``denom``; those it lacks start at zero."""
     dev = resolve_device(device)
-    params = GaussianParams(**{
-        f: torch.from_numpy(np.array(fields[f], dtype=np.float32)).to(dev)
-        for f in GaussianParams.__dataclass_fields__})
-    return GaussianState(params=params,
-                         alive=torch.from_numpy(np.array(alive, bool)).to(dev),
+
+    def t(x, dtype=np.float32):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+
+    params = GaussianParams(**{f: t(fields[f])
+                               for f in GaussianParams.__dataclass_fields__})
+    stats = stats or {}
+    return GaussianState(params=params, alive=t(alive, bool),
                          active_sh_degree=int(active_sh_degree),
-                         max_sh_degree=int(max_sh_degree))
+                         max_sh_degree=int(max_sh_degree),
+                         spatial_lr_scale=float(spatial_lr_scale),
+                         **{k: t(stats[k]) for k in ("max_radii2d",
+                                                     "xyz_grad_accum",
+                                                     "denom") if k in stats})
+
+
+def frame_batch(arrays: Mapping[str, np.ndarray | None],
+                device: str | torch.device = "cuda"):
+    """The port's FrameBatch from the JAX FrameBatch's fields as numpy
+    (``None`` for absent priors)."""
+    from ..train.common import FrameBatch
+
+    dev = resolve_device(device)
+    return FrameBatch(**{
+        k: None if v is None else torch.from_numpy(np.array(v)).to(dev)
+        for k, v in arrays.items()})

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``instag_torch/build/lib<name>-<hash>.so`` at first use
-(the hash is of the source, so an edited source is rebuilt), then loaded
-with ``ctypes``. Nothing here runs at import time: the CPU tests import
-every module, and this host need not have ``nvcc``.
+(the hash is of the source and of every header in ``csrc/``, so an edited
+source or header is rebuilt), then loaded with ``ctypes``. Each source
+exports ``<name>_launch``, which returns a ``cudaError_t``, and
+``<name>_error_string``. Nothing here runs at import time: the CPU tests
+import every module, and a host without a card need not have ``nvcc``.
 """
 
 from __future__ import annotations
@@ -37,9 +39,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: list[str]) -> dict[str, float]:
@@ -81,3 +86,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, argtypes: list, *args) -> None:
+    """Call ``<name>_launch`` of ``csrc/<name>.cu`` with ``args`` (ctypes
+    ``argtypes``: ``c_void_p`` for pointers and streams, ``c_int`` for
+    ints); raise with CUDA's message if it returns an error."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        msg = getattr(lib, f"{name}_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: " + getattr(
+            lib, f"{name}_error_string")(err).decode())

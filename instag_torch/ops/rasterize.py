@@ -8,11 +8,15 @@ radii, extra) composited over ``bg`` — from the same pieces:
   * ``_tile_select``: each 16x16 tile keeps its front-most ``max_per_tile``
     intersecting splats by depth (exact ``torch.topk``);
   * compositing, by ``RasterizeConfig.backend``:
-      "kernel" (default) gathers per-tile feature rows [F, T, K] and runs
-      ``ops.composite.composite_fwd`` — the hand-written CUDA kernel on the
-      card, its plain PyTorch version on the CPU;
+      "kernel" (default) gathers per-tile feature rows [F, T, K]
+      (``TileGather``, whose backward is ``ops.scatter.scatter_add_tiles``)
+      and runs ``ops.composite.CompositeFunction`` — the hand-written CUDA
+      kernels on the card, their plain PyTorch versions on the CPU;
       "plain" is the tensor formulation of the JAX package's XLA path
-      (exclusive cumulative sum of log(1 - alpha) over the sorted K axis).
+      (exclusive cumulative sum of log(1 - alpha) over the sorted K axis),
+      differentiated by autograd.
+  Both are differentiable, and both composite ``aux_colors`` with
+  stop-gradient weights.
 
 Selection is always exact. The JAX package's default ``approx_topk=True``
 uses ``jax.lax.approx_max_k``, an operation of the TPU only; here
@@ -28,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from ..utils.sh import eval_sh
-from .composite import composite_fwd
+from .composite import CompositeFunction
+from .scatter import scatter_add_tiles
 
 _SELECT_CHUNK = 128     # tiles per top-k sweep in _tile_select
 _PLAIN_CHUNK = 32       # tiles per step of the "plain" composite
@@ -371,15 +376,41 @@ def _composite_tiles(cfg: RasterizeConfig, px, py, proj: Projected, opac,
         contrib = t_incl >= 1e-4                 # prefix mask == early exit
         w = torch.where(contrib, alpha * t_excl, zero)
         chan = f[..., 6:]                                        # [c, K, 3|8]
-        if n_aux:
-            chan = torch.cat([chan, aux_colors[gids].to(chan.dtype)], dim=-1)
         acc = torch.einsum("cpk,ckd->cdp", w, chan)
+        if n_aux:
+            # aux (attention) channels see stop-gradient weights
+            aux = aux_colors[gids].to(chan.dtype)                # [c, K, A]
+            acc = torch.cat([acc, torch.einsum("cpk,cka->cap", w.detach(),
+                                               aux)], dim=1)
         out[t0:t1, :n_chan] = acc[:, :n_chan]
         out[t0:t1, n_chan] = w.sum(-1)
         out[t0:t1, n_chan + 1] = torch.exp(
             torch.where(contrib, log_t, zero).sum(-1))
         out[t0:t1, n_chan + 2:] = acc[:, n_chan:]
     return _assemble(cfg, out, proj, bg, light, n_chan, n_aux)
+
+
+class TileGather(torch.autograd.Function):
+    """``where(valid, feats[:, ids], 0)``: per-tile rows [F, T, K] of the
+    splat features [F, N] (counterpart of the JAX package's
+    ``_tile_gather``). Its backward is the tile -> splat scatter-add of the
+    valid slots, ``scatter_add_tiles``; ``valid`` must be a prefix of each
+    tile's K slots, as the depth-sorted selection gives."""
+
+    @staticmethod
+    def forward(ctx, feats, ids, valid):
+        cnt = valid.sum(-1, dtype=torch.int32)
+        ids = ids.to(torch.int32).contiguous()
+        ctx.save_for_backward(ids, cnt)
+        ctx.n = feats.shape[1]
+        return torch.where(valid[None], feats[:, ids.long()],
+                           torch.zeros((), device=feats.device,
+                                       dtype=feats.dtype)).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, cnt = ctx.saved_tensors
+        return scatter_add_tiles(g.contiguous(), ids, cnt, ctx.n), None, None
 
 
 def tile_features(px, py, proj: Projected, opac, colors, extra_attrs, ids,
@@ -394,20 +425,20 @@ def tile_features(px, py, proj: Projected, opac, colors, extra_attrs, ids,
     if aux_colors is not None:
         rows += [aux_colors[:, i] for i in range(aux_colors.shape[-1])]
     feats = torch.stack(rows, dim=0).to(torch.float32)           # [F, N]
-    ftiles = torch.where(valid[None], feats[:, ids.long()],
-                         torch.zeros((), device=feats.device)).contiguous()
-    return ftiles, valid.sum(-1, dtype=torch.int32)
+    return (TileGather.apply(feats, ids, valid),
+            valid.sum(-1, dtype=torch.int32))
 
 
 def _composite_tiles_kernel(cfg: RasterizeConfig, px, py, proj: Projected,
                             opac, colors, extra_attrs, ids, valid, bg,
                             light: bool = False, aux_colors=None):
-    """Kernel composite: ``tile_features`` then ``composite_fwd``."""
+    """Kernel composite: ``tile_features`` then ``CompositeFunction``."""
     n_chan = 3 if light else 8
     n_aux = 0 if aux_colors is None else aux_colors.shape[-1]
     ftiles, cnt = tile_features(px, py, proj, opac, colors, extra_attrs, ids,
                                 valid, light, aux_colors)
-    out = composite_fwd(ftiles, cnt, cfg.tiles_x, n_chan, n_aux, cfg.tile)
+    out = CompositeFunction.apply(ftiles, cnt, cfg.tiles_x, n_chan, n_aux,
+                                   cfg.tile)
     return _assemble(cfg, out, proj, bg, light, n_chan, n_aux)
 
 

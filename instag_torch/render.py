@@ -59,24 +59,40 @@ class MotionRender(NamedTuple):
     out: RasterizeOutput
     motion: dict[str, Any]
     p_motion: dict[str, Any] | None
+    attn: torch.Tensor | None = None      # [3, H, W] UMF attention map
+    p_attn: torch.Tensor | None = None    # [3, H, W] PMF attention map
 
 
 def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
                   umf: Callable[..., dict], aud: torch.Tensor,
                   exp: torch.Tensor, bg: torch.Tensor,
                   pmf: Callable[..., dict] | None = None,
-                  personalized: bool = False,
-                  align: bool = False) -> MotionRender:
+                  personalized: bool = False, align: bool | float = False,
+                  return_attn: bool = False,
+                  means2d_offset: torch.Tensor | None = None) -> MotionRender:
     """Face-branch motion render. ``umf(x, aud, exp)`` and
-    ``pmf(x, aud, exp)`` are the motion networks."""
+    ``pmf(x, aud, exp)`` are the motion networks.
+
+    ``align`` is a bool, or a float weight ``align_s`` (the trainer's 0/1
+    warm-up flag): any float runs the PMF's align head and applies
+    ``xyz + p_xyz align_s`` and ``d_xyz (1 + (p_scale - 1) align_s)``.
+    ``return_attn`` composites the attention maps
+    ``[ambient_aud, ambient_eye, 0]`` (and the PMF's when personalized) as
+    aux channels of the same composite, with stop-gradient weights.
+    ``means2d_offset`` [N, 2] is added to the projected means; its gradient
+    is the pixel-space position gradient of the densification statistics.
+    """
     xyz0 = state.params.xyz
     xyz = xyz0
 
+    align_structural = not (isinstance(align, bool) and not align)
+    align_s = (1.0 if align else 0.0) if isinstance(align, bool) else align
+
     p_preds = None
-    if personalized or align:
+    if personalized or align_structural:
         p_preds = pmf(xyz0, aud, exp)
-    if align:
-        xyz = xyz + p_preds["p_xyz"]
+    if align_structural:
+        xyz = xyz + p_preds["p_xyz"] * align_s
 
     preds = umf(xyz, aud, exp)
     d_xyz, d_scale, d_rot = preds["d_xyz"], preds["d_scale"], preds["d_rot"]
@@ -84,8 +100,8 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
         d_xyz = d_xyz + p_preds["d_xyz"]
         d_scale = d_scale + p_preds["d_scale"]
         d_rot = d_rot + p_preds["d_rot"]
-    if align:
-        d_xyz = d_xyz * (1.0 + (p_preds["p_scale"] - 1.0))
+    if align_structural:
+        d_xyz = d_xyz * (1.0 + (p_preds["p_scale"] - 1.0) * align_s)
 
     means3d = xyz0 + d_xyz
     opacity = state.get_opacity()
@@ -94,11 +110,23 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
 
     prep = prepare(cfg, means3d, scales, rotations, cam.view_transform,
                    cam.full_proj_transform, cam.camera_center, cam.tanfovx,
-                   cam.tanfovy, active=state.alive)
+                   cam.tanfovy, means2d_offset=means2d_offset,
+                   active=state.alive)
     colors = sh_colors(means3d, cam.camera_center, _masked_features(state),
                        state.max_sh_degree)
-    return MotionRender(composite_prepared(cfg, prep, opacity, colors, bg),
-                        preds, p_preds)
+    if not return_attn:
+        return MotionRender(composite_prepared(cfg, prep, opacity, colors, bg),
+                            preds, p_preds)
+    aux = [preds["ambient_aud"], preds["ambient_eye"]]
+    if personalized:
+        aux += [p_preds["ambient_aud"], p_preds["ambient_eye"]]
+    out, aux_img = composite_prepared(cfg, prep, opacity, colors, bg,
+                                      aux_colors=torch.cat(aux, dim=-1))
+    zero = torch.zeros_like(aux_img[0])
+    attn = torch.stack([aux_img[0], aux_img[1], zero])
+    p_attn = (torch.stack([aux_img[2], aux_img[3], zero]) if personalized
+              else None)
+    return MotionRender(out, preds, p_preds, attn, p_attn)
 
 
 def _move_feature(face_preds: dict, face_state: GaussianState, k: int,

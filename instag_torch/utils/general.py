@@ -2,11 +2,33 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))
+
+
+def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,
+             lr_delay_mult: float = 1.0,
+             max_steps: int = 1000000) -> torch.Tensor:
+    """Log-linear learning-rate interpolation with an optional warm-up dip,
+    as a float32 0-d tensor; 0 when ``lr_init`` is 0 or ``step`` lies
+    outside [0, max_steps]."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+            0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0, 1))
+    else:
+        delay_rate = 1.0
+    t = torch.clamp(step / max_steps, 0, 1)
+    log_lerp = torch.exp(math.log(max(lr_init, 1e-32)) * (1 - t)
+                         + math.log(max(lr_final, 1e-32)) * t)
+    lr = delay_rate * log_lerp
+    valid = (step >= 0) & (step <= max_steps) & (lr_init > 0)
+    return torch.where(valid, lr, torch.zeros_like(lr))
 
 
 def safe_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

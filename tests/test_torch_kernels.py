@@ -1,19 +1,24 @@
-"""The port's composite wrapper and its plain version, without JAX.
+"""The port's kernel wrappers and their plain versions, without JAX.
 
 This file imports nothing of JAX, so the tests marked ``cuda`` also run on a
 machine that has a card and no JAX:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-On the CPU the wrapper runs the plain PyTorch version; the CUDA kernel has no
-CPU mode, so its comparison with the plain version skips here.
+On the CPU the wrappers run the plain PyTorch versions; the CUDA kernels
+have no CPU mode, so their comparisons with the plain versions skip here.
 """
+
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from instag_torch.ops.composite import composite_fwd, composite_fwd_plain
+from instag_torch import kernels
+from instag_torch.ops.composite import (composite_bwd, composite_bwd_plain,
+                                        composite_fwd, composite_fwd_plain)
+from instag_torch.ops.scatter import scatter_add_tiles, scatter_add_tiles_plain
 
 TILES_X = 3
 T = 6          # 3 x 2 tiles
@@ -129,3 +134,76 @@ def test_kernel_rejects_what_it_does_not_take():
         composite_fwd(f, c, TILES_X, 12, 8)
     with pytest.raises(ValueError, match="float32"):
         composite_fwd(f.double(), c, TILES_X, 3)
+
+
+def _cotangent(n_chan, n_aux, seed=9):
+    return np.random.default_rng(seed).normal(
+        size=(T, n_chan + 2 + n_aux, 256)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chan,n_aux", [(8, 2), (8, 0)])
+def test_backward_kernel_matches_plain_on_card(n_chan, n_aux):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    feats, cnt = make_tiles(n_chan, n_aux, 256)
+    f = torch.from_numpy(feats).cuda()
+    c = torch.from_numpy(cnt).cuda()
+    g = torch.from_numpy(_cotangent(n_chan, n_aux)).cuda()
+    before = composite_bwd.launches
+    out = composite_bwd(f, c, g, TILES_X, n_chan, n_aux)
+    torch.cuda.synchronize()
+    assert composite_bwd.launches == before + 1
+    ref = composite_bwd_plain(f, c, g, TILES_X, n_chan, n_aux)
+    # the kernel sums each slot's 256 pixels in another order than the
+    # plain version's reductions: tolerance relative to the largest term
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, atol=1e-4 * scale, rtol=1e-3)
+    with pytest.raises(ValueError, match="g shape"):
+        composite_bwd(f, c, g[:, 1:].contiguous(), TILES_X, n_chan, n_aux)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(0)
+    F, nt, K, n = 16, 13, 256, 512
+    g = torch.from_numpy(rng.normal(size=(F, nt, K)).astype(np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(0, n // 8, size=(nt, K)
+                                        ).astype(np.int32)).cuda()
+    cnt = torch.from_numpy(rng.integers(0, K + 1, size=(nt,)
+                                        ).astype(np.int32)).cuda()
+    before = scatter_add_tiles.launches
+    out = scatter_add_tiles(g, ids, cnt, n)
+    torch.cuda.synchronize()
+    assert scatter_add_tiles.launches == before + 1
+    # atomics add in no fixed order: float32 rounding of ~100-term sums
+    torch.testing.assert_close(out, scatter_add_tiles_plain(g, ids, cnt, n),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="int32"):
+        scatter_add_tiles(g, ids.long(), cnt, n)
+
+
+def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds every library; an edited source only its
+    own (on a copy of csrc/)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    names = ("composite_fwd", "composite_bwd", "scatter_add")
+
+    def paths():
+        return {n: kernels.library_path(n) for n in names}
+
+    start = paths()
+    assert len(set(start.values())) == 3
+    header = csrc / "composite_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = paths()
+    assert all(edited[n] != start[n] for n in names)
+    src = csrc / "scatter_add.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = paths()
+    assert again["scatter_add"] != edited["scatter_add"]
+    assert again["composite_fwd"] == edited["composite_fwd"]

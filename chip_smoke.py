@@ -7,9 +7,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
   2. build: every CUDA kernel of the serving and training paths, from
      instag_torch/csrc, one nvcc each, started together;
   3. kernels against their plain PyTorch versions on the card, on tile
-     features from a real 512x512 projection of the synthetic face cloud:
-     the forward composite, the backward composite (C=8 with A=2 and A=0,
-     cotangents from a seed) and the tile -> splat scatter-add;
+     features from a real 512x512 projection of the synthetic face cloud
+     (36 busy tiles) and of a wide cloud that busies every tile: the
+     forward composite, the backward composite (C=8 with A=2 and A=0,
+     cotangents from a seed; two runs bitwise equal) and the tile -> splat
+     scatter-add;
   4. the serving path at full width (512x512, K=256, face 30000/32768 and
      mouth 10000/16384 splats, deepspeech nets, 8 frames with rotating
      audio windows): finite uint8 [512, 512, 3] frames, the composite
@@ -25,14 +27,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
      composite, then 12 steps with finite losses, one launch of each
      kernel per step and live densification statistics;
   8. the step's time (host clock around synchronize), each training
-     kernel's CUDA-event time beside its bound, its plain version and, for
-     the scatter, ``index_add_``; one profiled step.
+     kernel's CUDA-event time on both clouds beside its bound, its plain
+     version and, for the scatter, ``index_add_``; one profiled step.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -54,6 +57,8 @@ BWD_ATOL_FRAC = 1e-4     # this fraction of the largest |plain| term
 GRAD_RTOL = 2e-3         # kernel step vs plain-autograd step gradients, on
 GRAD_ATOL_FRAC = 5e-4    # top of this fraction of each tensor's max |g|
 SCATTER_TOL = 1e-5       # atomics: the order of the adds changes per run
+WIDE_SPREAD = 0.8        # a cloud over the whole frame: every tile busy
+WIDE_SCALE = 0.01        # (~140k valid slots; the face cloud busies 36)
 WARMUP = 5
 SOURCES = ["composite_fwd", "composite_bwd", "scatter_add"]
 
@@ -192,6 +197,112 @@ def check_close(name, out, ref, rtol, atol_frac):
     return worst
 
 
+def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
+                           n_aux):
+    """The training shape's kernels (C=8) on one cloud's tile features:
+    the forward, the backward twice (bitwise equal) and, with aux rows, the
+    scatter-add of its dfeats, each against its plain version."""
+    from instag_torch.ops.composite import (composite_bwd,
+                                            composite_bwd_plain,
+                                            composite_fwd,
+                                            composite_fwd_plain)
+    from instag_torch.ops.scatter import (scatter_add_tiles,
+                                          scatter_add_tiles_plain)
+
+    out = composite_fwd(feats, cnt, tiles_x, 8, n_aux)
+    ref, pairs = composite_fwd_plain(feats, cnt, tiles_x, 8, n_aux,
+                                     count_pairs=True)
+    d_k = composite_bwd(feats, cnt, g, tiles_x, 8, n_aux)
+    d_again = composite_bwd(feats, cnt, g, tiles_x, 8, n_aux)
+    d_p = composite_bwd_plain(feats, cnt, g, tiles_x, 8, n_aux)
+    torch.cuda.synchronize()
+    fwd_err = float((out - ref).abs().max())
+    if not fwd_err <= ATOL:
+        raise AssertionError(f"{label}: composite_fwd off by {fwd_err}")
+    if not torch.equal(d_k, d_again):
+        raise AssertionError(f"{label}: two backward runs differ")
+    worst = check_close(f"{label} composite_bwd C=8 A={n_aux}", d_k, d_p,
+                        BWD_RTOL, BWD_ATOL_FRAC)
+    log(f"{label} kernel composite_bwd C=8 A={n_aux} F={feats.shape[0]} "
+        f"busy tiles {int((cnt > 0).sum())}, sum cnt {int(cnt.sum())}, "
+        f"pairs {pairs}: max |kernel - plain| / row max per row "
+        f"{[f'{e:.1e}' for e in rel_err_rows(d_k, d_p)]}; {worst:.3f} of "
+        f"the tolerance; two runs bitwise equal; forward max |kernel - "
+        f"plain| {fwd_err:.2e}")
+    case = dict(feats=feats, cnt=cnt, g=g, d_k=d_k, pairs=pairs,
+                fwd_err=fwd_err, bwd_err=float((d_k - d_p).abs().max()))
+    if n_aux:
+        acc_k = scatter_add_tiles(d_k, ids, cnt, n_splats)
+        acc_p = scatter_add_tiles_plain(d_k, ids, cnt, n_splats)
+        torch.cuda.synchronize()
+        check_close(f"{label} scatter_add", acc_k, acc_p, SCATTER_TOL,
+                    SCATTER_TOL)
+        case["scatter_err"] = float((acc_k - acc_p).abs().max())
+        log(f"{label} kernel scatter_add F={d_k.shape[0]} N={n_splats} "
+            f"valid slots {int(cnt.sum())}: max |kernel - plain| / row max "
+            f"per row {[f'{e:.1e}' for e in rel_err_rows(acc_k, acc_p)]}")
+    return case
+
+
+def time_training_kernels(label, card, case, ids, valid, n_splats, tiles_x):
+    """CUDA-event times of the three kernels on one cloud's training-shape
+    inputs (C=8, A=2), each beside its bound, its plain version and, for
+    the scatter, ``index_add_`` on the pre-masked columns."""
+    from instag_torch.ops.composite import (composite_bwd,
+                                            composite_bwd_plain,
+                                            composite_fwd,
+                                            composite_fwd_plain)
+    from instag_torch.ops.scatter import (scatter_add_tiles,
+                                          scatter_add_tiles_plain)
+
+    feats, cnt, g, d_k, pairs = (case[k] for k in
+                                 ("feats", "cnt", "g", "d_k", "pairs"))
+    T, K = feats.shape[1:]
+    res = {}
+    f_ms = cuda_ms(lambda: composite_fwd(feats, cnt, tiles_x, 8, 2))
+    fp_ms = cuda_ms(lambda: composite_fwd_plain(feats, cnt, tiles_x, 8, 2),
+                    reps=2, rounds=5, warmup=1)
+    f_bound, f_by = kernel_bound(feats, cnt, 8, 2, pairs)
+    res["composite_fwd"] = dict(ms=f_ms, plain_ms=fp_ms, bound_ms=f_bound,
+                                bound_by=f_by, library_ms=None,
+                                max_abs_err=case["fwd_err"])
+    log(f"[{card}] {label} composite_fwd C=8 A=2 T={T} K={K}: kernel "
+        f"{f_ms:.4f} ms, plain {fp_ms:.3f} ms, bound {f_bound:.4f} ms "
+        f"({f_by}), kernel at {f_bound / f_ms:.1%} of bound")
+
+    b_ms = cuda_ms(lambda: composite_bwd(feats, cnt, g, tiles_x, 8, 2))
+    bp_ms = cuda_ms(lambda: composite_bwd_plain(feats, cnt, g, tiles_x, 8, 2),
+                    reps=2, rounds=5, warmup=1)
+    b_bound, b_by, b_parts = bwd_bound(feats, cnt, 8, 2, pairs)
+    res["composite_bwd"] = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=b_bound,
+                                bound_by=b_by, library_ms=None,
+                                max_abs_err=case["bwd_err"])
+    log(f"[{card}] {label} composite_bwd C=8 A=2 T={T} K={K}: kernel "
+        f"{b_ms:.4f} ms, plain {bp_ms:.3f} ms, bound {b_bound:.4f} ms "
+        f"({b_by}), kernel at {b_bound / b_ms:.1%} of bound; no single "
+        f"PyTorch call computes it")
+    log(f"  {label} composite_bwd bound parts: zero-fill of idle tiles' "
+        f"dfeats {b_parts['fill_mb']:.3f} MB; busy tiles "
+        f"{b_parts['busy_mb']:.3f} MB ({b_parts['busy_bytes_ms']:.5f} ms) "
+        f"against operations {b_parts['ops_ms']:.5f} ms ({pairs} pairs)")
+
+    s_ms = cuda_ms(lambda: scatter_add_tiles(d_k, ids, cnt, n_splats))
+    sp_ms = cuda_ms(lambda: scatter_add_tiles_plain(d_k, ids, cnt, n_splats))
+    vid, gv = ids[valid].long(), d_k[:, valid]
+    lib_ms = cuda_ms(lambda: torch.zeros((d_k.shape[0], n_splats),
+                                         device=d_k.device
+                                         ).index_add_(1, vid, gv))
+    s_bound, s_by = scatter_bound(d_k, cnt, n_splats)
+    res["scatter_add"] = dict(ms=s_ms, plain_ms=sp_ms, bound_ms=s_bound,
+                              bound_by=s_by, library_ms=lib_ms,
+                              max_abs_err=case["scatter_err"])
+    log(f"[{card}] {label} scatter_add F={d_k.shape[0]} N={n_splats} valid "
+        f"{int(cnt.sum())}: kernel {s_ms:.4f} ms, plain {sp_ms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms, bound {s_bound:.5f} ms ({s_by}), "
+        f"kernel at {s_bound / s_ms:.1%} of bound")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
@@ -205,14 +316,11 @@ def main() -> int:
     from instag_torch.config import OptimizationConfig
     from instag_torch.device import resolve_device
     from instag_torch.models.gaussians import PARAM_FIELDS, adam_init
-    from instag_torch.ops.composite import (composite_bwd,
-                                            composite_bwd_plain,
-                                            composite_fwd,
+    from instag_torch.ops.composite import (composite_bwd, composite_fwd,
                                             composite_fwd_plain)
     from instag_torch.ops.rasterize import (RasterizeConfig, prepare,
                                             sh_colors, tile_features)
-    from instag_torch.ops.scatter import (scatter_add_tiles,
-                                          scatter_add_tiles_plain)
+    from instag_torch.ops.scatter import scatter_add_tiles
     from instag_torch.train.face import (Flags, make_face_block,
                                          make_face_step)
     from instag_torch.render import _masked_features
@@ -288,10 +396,12 @@ def main() -> int:
                                      f"version: {worst} > {ATOL}")
             cases[(n_chan, n_aux)] = (feats, cnt, pairs, worst)
 
-        # the backward at the training shape (C=8, A=2) and without aux,
-        # then the scatter-add of the training shape's dfeats
+        # the training shape's kernels (C=8, A=2, and the backward without
+        # aux), on the face cloud and on a cloud that covers the frame
         gen = torch.Generator(dev).manual_seed(11)
-        bwd = {}
+        ids = prep.ids.contiguous()
+        n_splats = face.capacity
+        train_cases = {}
         for n_aux in (2, 0):
             feats, cnt = tile_features(
                 prep.px, prep.py, prep.proj, opac, colors,
@@ -299,30 +409,33 @@ def main() -> int:
                 aux_colors=aux[:, :n_aux] if n_aux else None)
             g = torch.randn((feats.shape[1], 10 + n_aux, 256), device=dev,
                             generator=gen)
-            d_k = composite_bwd(feats, cnt, g, cfg.tiles_x, 8, n_aux)
-            d_p = composite_bwd_plain(feats, cnt, g, cfg.tiles_x, 8, n_aux)
-            torch.cuda.synchronize()
-            worst = check_close(f"composite_bwd C=8 A={n_aux}", d_k, d_p,
-                                BWD_RTOL, BWD_ATOL_FRAC)
-            _, pairs = composite_fwd_plain(feats, cnt, cfg.tiles_x, 8, n_aux,
-                                           count_pairs=True)
-            log(f"kernel composite_bwd C=8 A={n_aux} F={feats.shape[0]}: "
-                f"max |kernel - plain| / row max per row "
-                f"{[f'{e:.1e}' for e in rel_err_rows(d_k, d_p)]}; "
-                f"{worst:.3f} of the tolerance")
-            bwd[n_aux] = (feats, cnt, g, d_k, pairs,
-                          float((d_k - d_p).abs().max()))
-        feats, cnt, g, d_k, _, _ = bwd[2]
-        ids = prep.ids.contiguous()
-        n_splats = face.capacity
-        acc_k = scatter_add_tiles(d_k, ids, cnt, n_splats)
-        acc_p = scatter_add_tiles_plain(d_k, ids, cnt, n_splats)
-        torch.cuda.synchronize()
-        check_close("scatter_add", acc_k, acc_p, SCATTER_TOL, SCATTER_TOL)
-        scatter_err = float((acc_k - acc_p).abs().max())
-        log(f"kernel scatter_add F={d_k.shape[0]} N={n_splats} valid slots "
-            f"{int(cnt.sum())}: max |kernel - plain| / row max per row "
-            f"{[f'{e:.1e}' for e in rel_err_rows(acc_k, acc_p)]}")
+            train_cases[("face", n_aux)] = training_kernel_checks(
+                "face cloud", feats, cnt, g, ids, n_splats, cfg.tiles_x,
+                n_aux)
+        wide = synthetic_state(30000, 32768, seed=2, spread=WIDE_SPREAD,
+                               scale=WIDE_SCALE, device=dev)
+        w_prep = prepare(cfg, wide.params.xyz, wide.get_scaling(),
+                         wide.get_rotation(), cam.view_transform,
+                         cam.full_proj_transform, cam.camera_center,
+                         cam.tanfovx, cam.tanfovy, active=wide.alive)
+        w_colors = sh_colors(wide.params.xyz, cam.camera_center,
+                             _masked_features(wide), wide.max_sh_degree)
+        w_opac = wide.get_opacity().reshape(-1)
+        feats, cnt = tile_features(
+            w_prep.px, w_prep.py, w_prep.proj, w_opac, w_colors,
+            torch.ones_like(w_opac), w_prep.ids, w_prep.valid,
+            aux_colors=aux[:, :2])
+        busy = int((cnt > 0).sum())
+        log(f"wide cloud: 30000/32768 splats, seed 2, spread {WIDE_SPREAD}, "
+            f"scale {WIDE_SCALE}: {busy} of {cnt.numel()} tiles busy, "
+            f"sum cnt {int(cnt.sum())}, {int((cnt == 256).sum())} tiles "
+            f"at K")
+        if busy < 0.8 * cnt.numel():
+            raise AssertionError(f"wide cloud covers {busy} tiles, < 80 %")
+        g = torch.randn((feats.shape[1], 12, 256), device=dev, generator=gen)
+        w_ids = w_prep.ids.contiguous()
+        train_cases[("wide", 2)] = training_kernel_checks(
+            "wide cloud", feats, cnt, g, w_ids, wide.capacity, cfg.tiles_x, 2)
 
     # ---- 4. the serving path at full width ----------------------------------
     synth = make_synthesis_fn(cfg, personalized=True, device=dev)
@@ -468,30 +581,18 @@ def main() -> int:
         f"{len(step_times)} steps (min {min(step_times):.3f}, max "
         f"{max(step_times):.3f}), host clock around synchronize")
 
-    feats, cnt, g, d_k, pairs_b, err_b2 = bwd[2]
-    b_ms = cuda_ms(lambda: composite_bwd(feats, cnt, g, cfg.tiles_x, 8, 2))
-    bp_ms = cuda_ms(lambda: composite_bwd_plain(feats, cnt, g, cfg.tiles_x,
-                                                8, 2),
-                    reps=2, rounds=5, warmup=1)
-    b_bound, b_by, b_parts = bwd_bound(feats, cnt, 8, 2, pairs_b)
-    log(f"[{card}] composite_bwd C=8 A=2 T=1024 K=256: kernel {b_ms:.4f} ms, "
-        f"plain {bp_ms:.3f} ms, bound {b_bound:.4f} ms ({b_by}), kernel at "
-        f"{b_bound / b_ms:.1%} of bound; no single PyTorch call computes it")
-    log(f"  composite_bwd bound parts: zero-fill of idle tiles' dfeats "
-        f"{b_parts['fill_mb']:.3f} MB; busy tiles {b_parts['busy_mb']:.3f} MB "
-        f"({b_parts['busy_bytes_ms']:.5f} ms) against operations "
-        f"{b_parts['ops_ms']:.5f} ms ({pairs_b} pairs)")
-    s_ms = cuda_ms(lambda: scatter_add_tiles(d_k, ids, cnt, n_splats))
-    sp_ms = cuda_ms(lambda: scatter_add_tiles_plain(d_k, ids, cnt, n_splats))
-    valid = prep.valid
-    vid, gv = ids[valid].long(), d_k[:, valid]
-    lib_ms = cuda_ms(lambda: torch.zeros((d_k.shape[0], n_splats),
-                                         device=dev).index_add_(1, vid, gv))
-    s_bound, s_by = scatter_bound(d_k, cnt, n_splats)
-    log(f"[{card}] scatter_add F=16 N=32768 valid {int(cnt.sum())}: kernel "
-        f"{s_ms:.4f} ms, plain {sp_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-        f"bound {s_bound:.5f} ms ({s_by}), kernel at {s_bound / s_ms:.1%} "
-        f"of bound")
+    timed = {
+        "face": time_training_kernels("face cloud", card,
+                                      train_cases[("face", 2)], ids,
+                                      prep.valid, n_splats, cfg.tiles_x),
+        "wide": time_training_kernels("wide cloud", card,
+                                      train_cases[("wide", 2)], w_ids,
+                                      w_prep.valid, wide.capacity,
+                                      cfg.tiles_x)}
+    bwd_lib = kernels.load("composite_bwd").composite_bwd_shared_bytes
+    bwd_lib.restype = ctypes.c_longlong
+    log(f"composite_bwd dynamic shared memory per CTA at K=256, T=1024, "
+        f"C+A=10: {bwd_lib(256, 1024, 10)} bytes")
 
     it_prof = iter(range(STEPS + 11, STEPS + 20))
     prof = profile_runs(lambda: block(tr_state, gopt, batch, [0],
@@ -506,6 +607,8 @@ def main() -> int:
     for op, count, ms in prof["host"]:
         log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
 
+    face_t, wide_t = timed["face"], timed["wide"]
+    bwd_err = max(c["bwd_err"] for c in train_cases.values())
     log(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "instag_torch/csrc/composite_fwd.cu",
@@ -513,23 +616,29 @@ def main() -> int:
         "launches": launches + train_launches["composite_fwd"],
         "launches_by_path": {"serving": launches,
                              "training": train_launches["composite_fwd"]},
-        "max_abs_err": max(err_main, err34),
+        "max_abs_err": max(err_main, err34,
+                           *(c["fwd_err"] for c in train_cases.values())),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "bound_by": bound_by, "library_ms": None,
+        "training_shape": {"face": face_t["composite_fwd"],
+                           "wide": wide_t["composite_fwd"]}}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "instag_torch/csrc/composite_bwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:260",
         "launches": train_launches["composite_bwd"],
-        "max_abs_err": max(err_b2, bwd[0][5]),
-        "ms": b_ms, "plain_ms": bp_ms, "bound_ms": b_bound,
-        "bound_by": b_by, "library_ms": None}, {
+        **{k: face_t["composite_bwd"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_abs_err": bwd_err,
+        "wide": wide_t["composite_bwd"]}, {
         "name": "scatter_add", "route": "cuda",
         "source": "instag_torch/csrc/scatter_add.cu",
         "replaces": "instag_tpu/ops/pallas_scatter.py:53",
         "launches": train_launches["scatter_add_tiles"],
-        "max_abs_err": scatter_err,
-        "ms": s_ms, "plain_ms": sp_ms, "bound_ms": s_bound,
-        "bound_by": s_by, "library_ms": lib_ms}]}))
+        **{k: face_t["scatter_add"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_abs_err": max(face_t["scatter_add"]["max_abs_err"],
+                           wide_t["scatter_add"]["max_abs_err"]),
+        "wide": wide_t["scatter_add"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -28,13 +28,20 @@ KERNEL_ATOL = 1e-4   # kernel vs plain on the card: expf/log1pf vs PyTorch's
 def make_tiles(n_chan, n_aux, K, seed=0):
     """Random prefix-valid tile features: two empty tiles, one full tile
     that saturates within its first few splats, the rest partly filled."""
+    cnt = np.array([0, K, 5, K // 2 + 3, K, 0], np.int32)
+    return _fill_tiles(cnt, TILES_X, n_chan, n_aux, K, seed), cnt
+
+
+def _fill_tiles(cnt, tiles_x, n_chan, n_aux, K, seed):
+    """Feature rows [F, len(cnt), K] for the valid prefixes ``cnt``: splats
+    centred up to 8 px outside their tile, random conics, opacities and
+    values; tile 1's first 8 splats saturate its centre pixels."""
     rng = np.random.default_rng(seed)
     F = -(-(6 + n_chan + n_aux) // 8) * 8
-    cnt = np.array([0, K, 5, K // 2 + 3, K, 0], np.int32)
-    feats = np.zeros((F, T, K), np.float32)
-    for t in range(T):
+    feats = np.zeros((F, len(cnt), K), np.float32)
+    for t in range(len(cnt)):
         n = cnt[t]
-        ox, oy = (t % TILES_X) * 16, (t // TILES_X) * 16
+        ox, oy = (t % tiles_x) * 16, (t // tiles_x) * 16
         feats[0, t, :n] = ox + rng.uniform(-8, 24, n)
         feats[1, t, :n] = oy + rng.uniform(-8, 24, n)
         a = rng.uniform(0.01, 0.4, n)
@@ -53,7 +60,7 @@ def make_tiles(n_chan, n_aux, K, seed=0):
     feats[2, 1, :8] = feats[4, 1, :8] = 1e-3
     feats[3, 1, :8] = 0.0
     feats[5, 1, :8] = 0.98
-    return feats, cnt
+    return feats
 
 
 def test_pair_count_stops_at_saturation():
@@ -183,6 +190,79 @@ def test_scatter_kernel_matches_plain_on_card():
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="int32"):
         scatter_add_tiles(g, ids.long(), cnt, n)
+
+
+BUSY_TILES_X = 4
+
+
+def make_busy_tiles(n_chan, n_aux, K, seed=3):
+    """Twelve tiles (4 x 3), ten of them busy, with ragged counts: 0, 1, K,
+    counts that are no multiple of the kernel's 32-slot batches or 8-slot
+    groups, and tile 1 full and saturating early."""
+    cnt = np.minimum(np.array([1, K, 7, 33, K - 1, 0, 45, K // 2 + 3, 63, 0,
+                               K, 9]), K).astype(np.int32)
+    return _fill_tiles(cnt, BUSY_TILES_X, n_chan, n_aux, K, seed), cnt
+
+
+def _busy_case(n_chan, n_aux, K):
+    feats, cnt = make_busy_tiles(n_chan, n_aux, K)
+    g = np.random.default_rng(4).normal(
+        size=(len(cnt), n_chan + 2 + n_aux, 256)).astype(np.float32)
+    return (torch.from_numpy(feats).cuda(), torch.from_numpy(cnt).cuda(),
+            torch.from_numpy(g).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("n_chan,n_aux", [(8, 2), (8, 0), (3, 4)])
+def test_backward_kernel_matches_plain_on_busy_tiles(n_chan, n_aux, K):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    f, c, g = _busy_case(n_chan, n_aux, K)
+    out = composite_bwd(f, c, g, BUSY_TILES_X, n_chan, n_aux)
+    ref = composite_bwd_plain(f, c, g, BUSY_TILES_X, n_chan, n_aux)
+    torch.cuda.synchronize()
+    # the same tolerance as test_backward_kernel_matches_plain_on_card
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, atol=1e-4 * scale, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    f, c, g = _busy_case(8, 2, 256)
+    first = composite_bwd(f, c, g, BUSY_TILES_X, 8, 2)
+    second = composite_bwd(f, c, g, BUSY_TILES_X, 8, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,n", [(16, 200), (3, 101)])
+def test_scatter_kernel_skips_out_of_range_ids(F, n):
+    """Ids shared across tiles, cnt of 0 and K, and ids outside [0, n),
+    which the kernel skips, against a float64 sum of the valid adds; F * n
+    = 303 also leaves the zeroing a tail past its 16-byte stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(1)
+    nt, K = 24, 64
+    g = rng.normal(size=(F, nt, K)).astype(np.float32)
+    ids = rng.integers(-20, n + 20, size=(nt, K)).astype(np.int32)
+    cnt = rng.integers(1, K, size=nt).astype(np.int32)
+    cnt[[0, 5]], cnt[[3, 17]] = 0, K
+    ref = np.zeros((F, n))
+    for t in range(nt):
+        for j in range(cnt[t]):
+            if 0 <= ids[t, j] < n:
+                ref[:, ids[t, j]] += g[:, t, j]
+    out = scatter_add_tiles(torch.from_numpy(g).cuda(),
+                            torch.from_numpy(ids).cuda(),
+                            torch.from_numpy(cnt).cuda(), n)
+    torch.cuda.synchronize()
+    # atomics add in no fixed order: float32 rounding of ~10-term sums
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch):

@@ -9,15 +9,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
   3. kernels against their plain PyTorch versions on the card, on tile
      features from a real 512x512 projection of the synthetic face cloud
      (36 busy tiles) and of a wide cloud that busies every tile: the
-     forward composite, the backward composite (C=8 with A=2 and A=0,
-     cotangents from a seed; two runs bitwise equal) and the tile -> splat
-     scatter-add;
+     forward composite (serving shape C=8, A=0 and training shape C=8,
+     A=2 on both clouds; C=3, A=4 on the face), the backward composite
+     (C=8 with A=2 and A=0, cotangents from a seed; two runs bitwise
+     equal) and the tile -> splat scatter-add;
   4. the serving path at full width (512x512, K=256, face 30000/32768 and
      mouth 10000/16384 splats, deepspeech nets, 8 frames with rotating
      audio windows): finite uint8 [512, 512, 3] frames, the composite
      kernel launched exactly twice per frame, and one frame held against
      the same frame through the plain composite;
-  5. times with CUDA events, each beside the card's name and power limit;
+  5. times with CUDA events, each beside the card's name and power limit:
+     the frame, and the forward composite at the serving shape on both
+     clouds beside its bound and its plain version;
   6. one profiled frame: device-busy share, launches, heaviest kernels and
      host operations;
   7. the face adaptation step at full width (512x512, K=256, face
@@ -195,6 +198,27 @@ def check_close(name, out, ref, rtol, atol_frac):
         raise AssertionError(f"{name}: disagrees with its reference, "
                              f"{worst:.2f}x the tolerance")
     return worst
+
+
+def fwd_check(label, feats, cnt, tiles_x, n_chan, n_aux):
+    """The forward composite against its plain version on one cloud's tile
+    features; returns the pairs a front-to-back walk evaluates and the
+    largest error."""
+    from instag_torch.ops.composite import composite_fwd, composite_fwd_plain
+
+    out = composite_fwd(feats, cnt, tiles_x, n_chan, n_aux)
+    ref, pairs = composite_fwd_plain(feats, cnt, tiles_x, n_chan, n_aux,
+                                     count_pairs=True)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().amax(dim=(0, 2)).tolist()
+    log(f"{label} kernel C={n_chan} A={n_aux} F={feats.shape[0]} "
+        f"T={feats.shape[1]} K={feats.shape[2]}: sum cnt {int(cnt.sum())}, "
+        f"busy tiles {int((cnt > 0).sum())}, pairs {pairs}; max |kernel - "
+        f"plain| per row {[f'{e:.2e}' for e in err]}")
+    if not max(err) <= ATOL:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version: {max(err)} > {ATOL}")
+    return pairs, max(err)
 
 
 def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
@@ -380,20 +404,8 @@ def main() -> int:
                 prep.px, prep.py, prep.proj, opac, colors,
                 torch.ones_like(opac), prep.ids, prep.valid,
                 light=n_chan == 3, aux_colors=aux if n_aux else None)
-            out = composite_fwd(feats, cnt, cfg.tiles_x, n_chan, n_aux)
-            ref, pairs = composite_fwd_plain(feats, cnt, cfg.tiles_x, n_chan,
-                                             n_aux, count_pairs=True)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().amax(dim=(0, 2)).tolist()
-            worst = max(err)
-            log(f"kernel C={n_chan} A={n_aux} F={feats.shape[0]} "
-                f"T={feats.shape[1]} K={feats.shape[2]}: sum cnt "
-                f"{int(cnt.sum())}, busy tiles {int((cnt > 0).sum())}, "
-                f"pairs {pairs}; max |kernel - plain| per row "
-                f"{[f'{e:.2e}' for e in err]}")
-            if not worst <= ATOL:
-                raise AssertionError(f"kernel disagrees with its plain "
-                                     f"version: {worst} > {ATOL}")
+            pairs, worst = fwd_check("face cloud", feats, cnt, cfg.tiles_x,
+                                     n_chan, n_aux)
             cases[(n_chan, n_aux)] = (feats, cnt, pairs, worst)
 
         # the training shape's kernels (C=8, A=2, and the backward without
@@ -436,6 +448,12 @@ def main() -> int:
         w_ids = w_prep.ids.contiguous()
         train_cases[("wide", 2)] = training_kernel_checks(
             "wide cloud", feats, cnt, g, w_ids, wide.capacity, cfg.tiles_x, 2)
+        # the serving shape where a real face puts it: every tile busy
+        feats, cnt = tile_features(
+            w_prep.px, w_prep.py, w_prep.proj, w_opac, w_colors,
+            torch.ones_like(w_opac), w_prep.ids, w_prep.valid)
+        pairs, worst = fwd_check("wide cloud", feats, cnt, cfg.tiles_x, 8, 0)
+        cases["wide", 8, 0] = (feats, cnt, pairs, worst)
 
     # ---- 4. the serving path at full width ----------------------------------
     synth = make_synthesis_fn(cfg, personalized=True, device=dev)
@@ -491,6 +509,16 @@ def main() -> int:
     log(f"[{card}] composite_fwd C=8 A=0 T=1024 K=256: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"kernel at {bound_ms / k_ms:.1%} of bound")
+    wf, wc, w_pairs, err_wide = cases["wide", 8, 0]
+    kw_ms = cuda_ms(lambda: composite_fwd(wf, wc, cfg.tiles_x, 8, 0))
+    pw_ms = cuda_ms(lambda: composite_fwd_plain(wf, wc, cfg.tiles_x, 8, 0),
+                    reps=2, rounds=5, warmup=1)
+    bw_ms, bw_by = kernel_bound(wf, wc, 8, 0, w_pairs)
+    wide_serving = dict(ms=kw_ms, plain_ms=pw_ms, bound_ms=bw_ms,
+                        bound_by=bw_by, library_ms=None, max_abs_err=err_wide)
+    log(f"[{card}] wide cloud composite_fwd C=8 A=0 T=1024 K=256: kernel "
+        f"{kw_ms:.4f} ms, plain {pw_ms:.3f} ms, bound {bw_ms:.4f} ms "
+        f"({bw_by}), kernel at {bw_ms / kw_ms:.1%} of bound")
     f34, c34, pairs34, err34 = cases[(3, 4)]
     k34 = cuda_ms(lambda: composite_fwd(f34, c34, cfg.tiles_x, 3, 4))
     log(f"[{card}] composite_fwd C=3 A=4: kernel {k34:.4f} ms")
@@ -616,10 +644,11 @@ def main() -> int:
         "launches": launches + train_launches["composite_fwd"],
         "launches_by_path": {"serving": launches,
                              "training": train_launches["composite_fwd"]},
-        "max_abs_err": max(err_main, err34,
+        "max_abs_err": max(err_main, err34, err_wide,
                            *(c["fwd_err"] for c in train_cases.values())),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        "wide_serving": wide_serving,
         "training_shape": {"face": face_t["composite_fwd"],
                            "wide": wide_t["composite_fwd"]}}, {
         "name": "composite_bwd", "route": "cuda",

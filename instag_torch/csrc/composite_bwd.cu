@@ -50,7 +50,8 @@
 //     composite_common.cuh into shared memory; (B) one thread per pixel
 //     adds the log steps with __fadd_rn in slot order and applies the
 //     forward's stop test expf(log_t) >= 1e-4 (skipped while log_t > -9,
-//     where expf(log_t) > 1.2e-4 for certain), so every contribution
+//     where expf(log_t) > 1.2e-4 for certain), through the header's
+//     carry_group, which the forward's carry runs too: every contribution
 //     decision and T_final are composite_fwd.cu's, bit for bit. It keeps op
 //     e^power where the slot contributes and 0 elsewhere: each splat is
 //     evaluated once per pixel. The segments stop when every pixel is done.
@@ -81,7 +82,6 @@ namespace {
 
 using instag::kPix;
 using instag::kTile;
-using instag::kTMin;
 constexpr int kCluster = 4;                  // CTAs per busy tile
 constexpr int kPx = kPix / kCluster;         // pixels per CTA
 constexpr int kLanes = 4;                    // threads per pixel
@@ -89,7 +89,6 @@ constexpr int kThreads = kPx * kLanes;
 constexpr int kSeg = 64;                     // slots per segment
 constexpr int kLd = kPx + 1;                 // row stride of [slot][pixel]
 constexpr int kHalf = kPx / 2;               // pixels per partial sum
-constexpr float kLogTSure = -9.0f;           // expf above it is >= 1.2e-4
 constexpr size_t kMaxShared = 232448 - 1024;
 
 static_assert(kThreads == 4 * kSeg, "the sums give each slot 4 threads");
@@ -113,31 +112,6 @@ struct Layout {
         tiles(g + kPx * NG),
         total(tiles + T) {}
 };
-
-// Exclusive prefix of one int per thread, in thread order, over the CTA;
-// *total gets the CTA's sum. Every thread must call it.
-__device__ __forceinline__ int block_exclusive_sum(int v, int* s_warp,
-                                                   int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int before = 0, sum = 0;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    const int x = s_warp[w];
-    before += w < warp ? x : 0;
-    sum += x;
-  }
-  *total = sum;
-  __syncthreads();  // s_warp may be written again
-  return before + incl - v;
-}
 
 template <int NV>  // NV = C + A value rows
 __global__ void __launch_bounds__(kThreads, 2)
@@ -176,7 +150,7 @@ composite_bwd_kernel(const float* __restrict__ feats,
     const int t0 = min(T, tid * per), t1 = min(T, t0 + per);
     int mine = 0;
     for (int t = t0; t < t1; ++t) mine += cnt[t] > 0;
-    int at = block_exclusive_sum(mine, s_scan, &n_busy);
+    int at = instag::block_exclusive_sum<kThreads>(mine, s_scan, &n_busy);
     for (int t = t0; t < t1; ++t) {
       if (cnt[t] > 0)
         s_tiles[at++] = t;
@@ -242,7 +216,8 @@ composite_bwd_kernel(const float* __restrict__ feats,
     bool done = false;
     for (int base = 0; base < n; base += kSeg) {
       const int nb = min(kSeg, n - base);
-      // (A) the segment's splat terms: op e^power, or -1 where not ok
+      // (A) the segment's splat terms: op e^power, or -1 where not ok, and
+      // the log steps, 0 where not ok
 #pragma unroll 4
       for (int jj = lane; jj < kSeg; jj += kLanes) {
         if (jj < nb) {
@@ -251,53 +226,28 @@ composite_bwd_kernel(const float* __restrict__ feats,
               xf, yf, s_feat[j], s_feat[ks + j], s_feat[2 * ks + j],
               s_feat[3 * ks + j], s_feat[4 * ks + j], s_feat[5 * ks + j]);
           s_pre[j * kLd + px] = s.ok ? s.pre : -1.f;
-          s_seg[jj * kLd + px] = instag::log_step(s.alpha);
+          s_seg[jj * kLd + px] = s.ok ? instag::log_step(s.alpha) : 0.f;
         }
       }
       __syncthreads();
       // (B) the log-T carry and the stop test, in slot order, 8 slots at a
-      // time: their 8 sums first (adding 0 for a slot that is not ok leaves
-      // the sum's bits alone), then, since log-T never rises, one compare
-      // of the last sum settles all 8 tests unless it reaches -9
+      // time (composite_common.cuh's carry_group, as the forward runs it)
       if (lane == 0) {
         for (int j0 = 0; j0 < nb; j0 += 8) {
-          float pr[8], ls[8], lt[8];
+          float pr[8], step[8];
 #pragma unroll
           for (int u = 0; u < 8; ++u) {
             const bool in = j0 + u < nb;
             pr[u] = in ? s_pre[(base + j0 + u) * kLd + px] : -1.f;
-            ls[u] = in ? s_seg[(j0 + u) * kLd + px] : 0.f;
+            step[u] = in ? s_seg[(j0 + u) * kLd + px] : 0.f;
           }
-          float run = log_t;
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            run = __fadd_rn(run, pr[u] >= 0.f ? ls[u] : 0.f);
-            lt[u] = run;
-          }
-          if (!done && lt[7] > kLogTSure) {  // every slot's test passes
-            log_t = lt[7];
-#pragma unroll
-            for (int u = 0; u < 8; ++u) pr[u] = fmaxf(pr[u], 0.f);
-          } else {
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-              float keep = 0.f;
-              if (!done && pr[u] >= 0.f) {
-                const float next = __fadd_rn(log_t, ls[u]);
-                if (next > kLogTSure || expf(next) >= kTMin) {
-                  log_t = next;
-                  keep = pr[u];
-                } else {
-                  done = true;
-                  stop = base + j0 + u;
-                }
-              }
-              pr[u] = keep;
-            }
-          }
+          const unsigned keep =
+              instag::carry_group(step, log_t, done, base + j0, stop);
 #pragma unroll
           for (int u = 0; u < 8; ++u)
-            if (j0 + u < nb) s_pre[(base + j0 + u) * kLd + px] = pr[u];
+            if (j0 + u < nb)
+              s_pre[(base + j0 + u) * kLd + px] =
+                  (keep >> u) & 1u ? pr[u] : 0.f;
         }
       }
       if (__syncthreads_and(lane != 0 || done)) break;

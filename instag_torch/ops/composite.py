@@ -200,7 +200,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def composite_fwd(feats: torch.Tensor, cnt: torch.Tensor, tiles_x: int,
                   n_chan: int, n_aux: int = 0, tile: int = 16) -> torch.Tensor:
     """Per-tile fused composite: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see module docstring for the contract)."""
+    version for CPU tensors (see module docstring for the contract). On the
+    card one call launches csrc/composite_fwd.cu's pair of kernels (the
+    split kernel and its programmatic dependent), counted as one launch."""
     if feats.device.type == "cpu":
         return composite_fwd_plain(feats, cnt, tiles_x, n_chan, n_aux, tile)
     if feats.device.type != "cuda":

@@ -75,28 +75,104 @@ def test_pair_count_stops_at_saturation():
                                    torch.from_numpy(cnt), TILES_X, 3).numpy())
 
 
-def _walk_pixel(feats, n, tx, ty, x, y, n_chan, n_aux):
-    """The kernel's per-thread loop for one pixel, written out in float64:
-    front to back, log-domain transmittance, stop at the first splat that
-    does not contribute."""
+def _splat(feats, k, tx, ty, x, y, f):
+    """Slot k's (alpha, ok) at tile-local pixel (x, y), in the type ``f``
+    and in the kernel's order of operations (composite_common.cuh)."""
+    px, py, ca, cb, cc, op = (f(v) for v in feats[:6, k])
+    dx, dy = f(x) - (px - f(tx * 16)), f(y) - (py - f(ty * 16))
+    power = f(-0.5) * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = min(f(0.99), op * np.exp(power))
+    return alpha, bool(power <= 0 and alpha >= f(1.0 / 255.0))
+
+
+def _walk_pixel(feats, n, tx, ty, x, y, n_chan, n_aux, f=np.float64,
+                with_stop=False):
+    """The kernel's per-thread loop for one pixel, written out in the type
+    ``f``: front to back, log-domain transmittance, stop at the first splat
+    that does not contribute (``with_stop`` also returns that slot, or n,
+    and each contributing slot's log T)."""
     nv = n_chan + n_aux
-    acc, wsum, log_t, log_t_c = np.zeros(nv), 0.0, 0.0, 0.0
+    acc, wsum, log_t, log_t_c = np.zeros(nv, f), f(0), f(0), f(0)
+    stop, lts = n, {}
     for k in range(n):
-        px, py, ca, cb, cc, op = (float(v) for v in feats[:6, k])
-        dx, dy = x - (px - tx * 16), y - (py - ty * 16)
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = min(0.99, op * np.exp(power))
-        if not (power <= 0.0 and alpha >= 1.0 / 255.0):
+        alpha, ok = _splat(feats, k, tx, ty, x, y, f)
+        if not ok:
             continue
         log_t += np.log1p(-alpha)
-        if np.exp(log_t) < 1e-4:
+        if np.exp(log_t) < f(1e-4):
+            stop = k
             break
-        w = np.exp(log_t) * alpha / (1.0 - alpha)
+        w = np.exp(log_t) * alpha / (f(1) - alpha)
+        lts[k] = log_t
         log_t_c += np.log1p(-alpha)
         wsum += w
-        acc += w * feats[6:6 + nv, k]
-    return np.concatenate([acc[:n_chan], [wsum, np.exp(log_t_c)],
-                           acc[n_chan:]])
+        acc += w * feats[6:6 + nv, k].astype(f)
+    out = np.concatenate([acc[:n_chan], [wsum, np.exp(log_t_c)],
+                          acc[n_chan:]])
+    return (out, stop, lts) if with_stop else out
+
+
+def _grouped_carry(steps, f=np.float32):
+    """composite_common.cuh's carry_group over a pixel's slots, 8 at a
+    time: ``steps`` holds log1p(-alpha) where a slot is ok and 0 where it is
+    not. Returns the stop slot (or n), T_final and each contributing slot's
+    log T, recomputed as the forward kernel does: the group's running sum."""
+    n = len(steps)
+    log_t, done, stop, lts = f(0), False, n, {}
+    for j0 in range(0, n, 8):
+        group = [steps[j] if j < n else f(0) for j in range(j0, j0 + 8)]
+        entry, run = log_t, log_t
+        for s in group:
+            run = run + s
+        keep = set()
+        if not done and run > f(-9):  # every slot's test passes
+            log_t = run
+            keep = {u for u, s in enumerate(group) if s < 0}
+        else:
+            for u, s in enumerate(group):
+                if not done and s < 0:
+                    nxt = log_t + s
+                    if nxt > f(-9) or np.exp(nxt) >= f(1e-4):
+                        log_t = nxt
+                        keep.add(u)
+                    else:
+                        done, stop = True, j0 + u
+        run = entry
+        for u, s in enumerate(group):
+            run = run + s
+            if u in keep:
+                lts[j0 + u] = run
+    return stop, np.exp(log_t), lts
+
+
+def test_grouped_carry_keeps_the_serial_decisions():
+    """The carry that both kernels run (8-slot groups, one compare above
+    log T = -9, adding 0 for slots that are not ok) gives the serial walk's
+    stop slot, T_final bits and each contributing slot's log T (from which
+    the forward forms the weight), in float32, on every pixel of the ragged
+    busy tiles: tile 1 saturates after 8 splats at opacity 0.98, and tile 3
+    is led by two such splats (T = 4e-4 after them, above the -9 shortcut)."""
+    f = np.float32
+    feats, cnt = make_busy_tiles(3, 0, 64)
+    feats[:6, 3, :2] = feats[:6, 1, :2]
+    feats[0, 3, :2] = 3 * 16 + 8   # tile 3's centre
+    n_slow = 0
+    for t in np.flatnonzero(cnt):
+        tx, ty, n = t % BUSY_TILES_X, t // BUSY_TILES_X, int(cnt[t])
+        for p in range(256):
+            x, y = p % 16, p // 16
+            ref, stop, lts = _walk_pixel(feats[:, t], n, tx, ty, x, y, 3, 0,
+                                         f, with_stop=True)
+            steps = []
+            for k in range(n):
+                alpha, ok = _splat(feats[:, t], k, tx, ty, x, y, f)
+                steps.append(np.log1p(-alpha) if ok else f(0))
+            g_stop, t_final, g_lts = _grouped_carry(steps)
+            assert g_stop == stop and g_lts == lts, (t, p)
+            assert np.float32(t_final).view(np.uint32) == \
+                np.float32(ref[3 + 1]).view(np.uint32), (t, p)
+            n_slow += stop < n
+    assert n_slow > 0   # some pixels stop, through the exact test
 
 
 @pytest.mark.parametrize("n_chan,n_aux", [(3, 0), (8, 4)])
@@ -225,6 +301,92 @@ def test_backward_kernel_matches_plain_on_busy_tiles(n_chan, n_aux, K):
     # the same tolerance as test_backward_kernel_matches_plain_on_card
     scale = float(ref.abs().max())
     torch.testing.assert_close(out, ref, atol=1e-4 * scale, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("n_chan,n_aux", [(8, 2), (8, 0), (3, 4)])
+def test_kernel_matches_plain_on_busy_tiles(n_chan, n_aux, K):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    f, c, _ = _busy_case(n_chan, n_aux, K)
+    out = composite_fwd(f, c, BUSY_TILES_X, n_chan, n_aux)
+    ref = composite_fwd_plain(f, c, BUSY_TILES_X, n_chan, n_aux)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    f, c, _ = _busy_case(8, 2, 256)
+    first = composite_fwd(f, c, BUSY_TILES_X, 8, 2)
+    second = composite_fwd(f, c, BUSY_TILES_X, 8, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _layout(name, n_chan=8, n_aux=2):
+    """Tile layouts for the kernel's choice of CTAs a busy tile, which it
+    makes on the card from the busy-tile count. On an H100 (3 x 132
+    resident split CTAs) busy_1, busy_40, busy_80 and busy_150 take 16, 8,
+    4 and 2 CTAs a busy tile, busy_300 and busy_1024 one thread a pixel.
+    twelve_k61 (ten busy tiles, K = 61) also takes the 4-byte staging."""
+    if name.startswith("twelve"):
+        K = 61 if name.endswith("k61") else 64
+        feats, cnt = make_busy_tiles(n_chan, n_aux, K)
+        return feats, cnt, BUSY_TILES_X
+    if name == "one_of_64":
+        cnt = np.zeros(64, np.int32)
+        cnt[1] = 64   # the tile that saturates
+        return _fill_tiles(cnt, 8, n_chan, n_aux, 64, 6), cnt, 8
+    n_busy = int(name.split("_")[1])
+    rng = np.random.default_rng(n_busy)
+    cnt = np.zeros(1024, np.int32)
+    others = np.setdiff1d(np.arange(1024), [1])
+    busy = np.concatenate([[1], rng.choice(others, n_busy - 1,
+                                           replace=False)])
+    cnt[busy] = rng.integers(1, 65, n_busy)
+    cnt[busy[-1]] = 64
+    return _fill_tiles(cnt, 32, n_chan, n_aux, 64, 8), cnt, 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one_of_64", "twelve", "twelve_k61",
+                                  "busy_1", "busy_40", "busy_80",
+                                  "busy_150", "busy_300", "busy_1024"])
+def test_kernel_matches_plain_at_every_split(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    feats, cnt, tiles_x = _layout(name)
+    f, c = torch.from_numpy(feats).cuda(), torch.from_numpy(cnt).cuda()
+    out = composite_fwd(f, c, tiles_x, 8, 2)
+    ref = composite_fwd_plain(f, c, tiles_x, 8, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=KERNEL_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_split_and_one_thread_a_pixel_agree():
+    """The same twelve tiles alone (many CTAs a busy tile) and as the first
+    twelve of 1024 busy tiles (one thread a pixel): T_final bitwise equal,
+    the sums within float32 rounding of their order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    small, cnt = make_busy_tiles(8, 2, 64)
+    big_cnt = np.random.default_rng(9).integers(1, 65, 1024).astype(np.int32)
+    big_cnt[:12] = cnt
+    big = _fill_tiles(big_cnt, BUSY_TILES_X, 8, 2, 64, 10)
+    big[:, :12] = small
+    out_s = composite_fwd(torch.from_numpy(small).cuda(),
+                          torch.from_numpy(cnt).cuda(), BUSY_TILES_X, 8, 2)
+    out_b = composite_fwd(torch.from_numpy(big).cuda(),
+                          torch.from_numpy(big_cnt).cuda(), BUSY_TILES_X, 8,
+                          2)[:12]
+    torch.cuda.synchronize()
+    assert torch.equal(out_s[:, 9], out_b[:, 9])
+    torch.testing.assert_close(out_s, out_b, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

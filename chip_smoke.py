@@ -31,7 +31,20 @@ Phases (any failure exits non-zero, and the result line is not printed):
      kernel per step and live densification statistics;
   8. the step's time (host clock around synchronize), each training
      kernel's CUDA-event time on both clouds beside its bound, its plain
-     version and, for the scatter, ``index_add_``; one profiled step.
+     version and, for the scatter, ``index_add_``; one profiled step;
+  9. the adaptation loop at full width (``train.face.train_face``: 512x512,
+     K=256, ``ModelConfig()``'s 10000 initial splats in an adaptive
+     capacity of 32768 under 160768, deepspeech nets, the 16-frame orbit
+     batch, 1200 steps with densification at step 150, the opacity reset at
+     150, the green/depth prune every 50 steps from 150 and the SH bump at
+     1000): finite losses that fall, one launch of each kernel per step, a
+     densification that changed the live count, a depth prune that removed
+     splats, SH degree 1 at the end, a finite frame from the final state,
+     and one ``densify_and_prune`` on the card equal to the same call on
+     the CPU; its wall time and ms per step (host clock around
+     synchronize), each event's time on the final state, the cloud's
+     construction with its kNN, and the live count and capacity at each
+     log point.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -64,6 +77,14 @@ WIDE_SPREAD = 0.8        # a cloud over the whole frame: every tile busy
 WIDE_SCALE = 0.01        # (~140k valid slots; the face cloud busies 36)
 WARMUP = 5
 SOURCES = ["composite_fwd", "composite_bwd", "scatter_add"]
+# phase 9: the adaptation loop
+LOOP_FRAMES = 16
+LOOP_OPT = dict(iterations=1200, densify_from_iter=100,
+                densification_interval=50, opacity_reset_interval=150,
+                position_lr_max_steps=1200)
+LOOP_WARM_STEP = 300
+LOOP_LOG_EVERY = 100
+DENSIFY_TOL = 1e-6       # card vs CPU densify: rtol and atol on parameters
 
 
 def log(*args):
@@ -325,6 +346,202 @@ def time_training_kernels(label, card, case, ids, valid, n_splats, tiles_x):
         f"index_add_ {lib_ms:.4f} ms, bound {s_bound:.5f} ms ({s_by}), "
         f"kernel at {s_bound / s_ms:.1%} of bound")
     return res
+
+
+def host_ms(fn, reps=5) -> float:
+    """Median host-clock ms of ``fn()`` between two synchronizes."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def adaptation_loop(card: str, dev: torch.device, size: int) -> dict:
+    """Phase 9: ``train_face`` at full width, its checks and its times.
+    Returns each kernel's launches in the loop."""
+    from instag_torch.bench_utils import (orbit_frame_batch,
+                                          synthetic_motion_params)
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data.dataset import random_init_points
+    from instag_torch.models import gaussians as G
+    from instag_torch.ops.composite import composite_bwd, composite_fwd
+    from instag_torch.ops.knn import mean_knn_dist2
+    from instag_torch.ops.scatter import scatter_add_tiles
+    from instag_torch.render import render_motion
+    from instag_torch.train import face as F
+
+    model_cfg = ModelConfig()
+    oc = OptimizationConfig(**LOOP_OPT)
+    batch = orbit_frame_batch(size, LOOP_FRAMES, device=dev)
+    nets = synthetic_motion_params(seed=2, device=dev)
+
+    # count each event's live splats before and after (device tensors,
+    # read after the loop, so the loop waits on nothing more than it does)
+    events = {k: [] for k in ("densify", "reset", "prune", "pack_resize")}
+    log_points = []
+
+    def counted(kind, fn):
+        def run(state, opt, *args, **kw):
+            depth = (state.alive & (state.params.xyz[:, 2] < -0.07)).sum()
+            out = fn(state, opt, *args, **kw)
+            born = (out[0].alive[:state.capacity] & ~state.alive).sum()
+            events[kind].append((state.num_alive(), out[0].num_alive(), born,
+                                 depth))
+            return out
+        return run
+
+    originals = {(G, "densify_and_prune"): "densify",
+                 (G, "reset_opacity"): "reset",
+                 (F, "_prune_green_and_depth"): "prune",
+                 (G, "pack_resize"): "pack_resize"}
+    saved = {key: getattr(*key) for key in originals}
+    for (mod, name), kind in originals.items():
+        setattr(mod, name, counted(kind, saved[mod, name]))
+    fns = (composite_fwd, composite_bwd, scatter_add_tiles)
+    try:
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = F.train_face(
+            model_cfg, oc, batch, umf_net=nets["face_umf"],
+            pmf_net=nets["face_pmf"], log_every=LOOP_LOG_EVERY,
+            warm_step=LOOP_WARM_STEP, device=dev,
+            eval_fn=lambda end, st, *_: log_points.append(
+                (end, st.num_alive(), st.capacity)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {fn.__name__: fn.launches for fn in fns}
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    steps = oc.iterations
+    state, gopt, losses = res["state"], res["gopt"], np.array(res["losses"])
+    log(f"[{card}] adaptation loop: {steps} steps in {wall:.2f} s wall, "
+        f"{wall * 1e3 / steps:.2f} ms per step (events and set-up "
+        f"included; host clock around synchronize); kernel launches "
+        f"{launches}")
+    log("  live splats / capacity at each log point: " + ", ".join(
+        f"{end}: {int(n)}/{cap}" for end, n, cap in log_points))
+    counts = {k: [tuple(int(x) for x in c) for c in v]
+              for k, v in events.items()}
+    log(f"  events (live before, after, born, behind z = -0.07 before; "
+        f"prunes that removed nothing left out): "
+        + str({k: [c for c in v if k != "prune" or c[0] != c[1]]
+               for k, v in counts.items()})
+        + f"; {len(counts['prune'])} prunes")
+    first, last = losses[:100].mean(), losses[-100:].mean()
+    log(f"  loss: mean of the first 100 steps {first:.5f}, of the last 100 "
+        f"{last:.5f}; active SH degree {state.active_sh_degree}, capacity "
+        f"{state.capacity}, dropped children {state.dropped_children}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing loop losses")
+    if not last < first:
+        raise AssertionError("the loop's loss did not fall")
+    if any(v != steps for v in launches.values()):
+        raise AssertionError(f"expected one launch of each kernel per step: "
+                             f"{launches}")
+    if not any(b != a for b, a, _, _ in counts["densify"]):
+        raise AssertionError("no densification changed the live count")
+    if not counts["reset"]:
+        raise AssertionError("no opacity reset ran")
+    if not sum(d for _, _, _, d in counts["prune"]) > 0:
+        raise AssertionError("the depth prune removed no splat")
+    if state.active_sh_degree != 1:
+        raise AssertionError(f"active SH degree {state.active_sh_degree}")
+    with torch.no_grad():
+        frame = render_motion(res["cfg"], batch.camera(0), state,
+                              umf=res["umf_net"], aud=batch.auds[0],
+                              exp=batch.au_exp[0],
+                              bg=torch.zeros(3, device=dev),
+                              pmf=res["pmf_net"], align=1.0).out.image
+    if not torch.isfinite(frame).all():
+        raise AssertionError("non-finite frame from the final state")
+
+    # one densification on the card against the same call on the CPU, at
+    # the median gradient of the live splats, so that half of them grow
+    noise = torch.randn((2, state.capacity, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+    grads = state.xyz_grad_accum / state.denom.clamp_min(1)
+    args = (float(grads[state.alive & (state.denom > 0)].median()), 0.1,
+            res["extent"], 20.0, oc.percent_dense)
+    g_state, g_opt = G.densify_and_prune(state, gopt, noise, *args)
+    c_state, c_opt = G.densify_and_prune(state.to("cpu"), gopt.to("cpu"),
+                                         noise.cpu(), *args)
+    if not torch.equal(g_state.alive.cpu(), c_state.alive):
+        raise AssertionError("densify: card and CPU alive masks differ")
+    worst = 0.0
+    for f in G.PARAM_FIELDS:
+        a, b = getattr(g_state.params, f).cpu(), getattr(c_state.params, f)
+        worst = max(worst, float(((a - b).abs() / (DENSIFY_TOL * (
+            1 + b.abs()))).max()))
+    if not worst <= 1.0:
+        raise AssertionError(f"densify: card and CPU parameters differ, "
+                             f"{worst:.2f}x the tolerance")
+    born = int((c_state.alive & ~state.alive.cpu()).sum())
+    if not born > 0:
+        raise AssertionError("densify on the card vs the CPU made no child")
+    log(f"  densify on the card vs the CPU, same draws, gradient threshold "
+        f"{args[0]:.3e} (the live median): alive masks equal ({born} "
+        f"children, {int(c_state.alive.sum())} live), parameters within "
+        f"{worst:.3f} of rtol = atol = {DENSIFY_TOL}")
+
+    # each event's time on the final state, and the cloud's construction
+    xyz, cols = (torch.from_numpy(a).to(dev)
+                 for a in random_init_points(model_cfg.init_num))
+    start_cap = G.adaptive_start_capacity(model_cfg.init_num,
+                                          model_cfg.resolve_capacity())
+    ev_ms = {
+        "densify_and_prune": host_ms(
+            lambda: G.densify_and_prune(state, gopt, noise, *args)),
+        "prune_green_and_depth": host_ms(
+            lambda: F._prune_green_and_depth(state, gopt,
+                                             batch.camera_center[0], True)),
+        "reset_opacity": host_ms(lambda: G.reset_opacity(state, gopt)),
+        "pack_resize (x2)": host_ms(
+            lambda: G.pack_resize(state, gopt, 2 * state.capacity)),
+        "log-point read": host_ms(lambda: torch.cat([
+            state.num_alive().to(torch.float32)[None],
+            F._tile_saturation(res["cfg"], state, batch, 0)[None],
+            torch.zeros(LOOP_LOG_EVERY, device=dev)]).tolist()),
+        f"mean_knn_dist2 ({len(xyz)} points)": host_ms(
+            lambda: mean_knn_dist2(xyz)),
+        f"create_from_points ({len(xyz)} into {start_cap})": host_ms(
+            lambda: G.create_from_points(xyz, cols, start_cap, 1,
+                                         res["extent"])),
+    }
+    log(f"[{card}] event times on the final state (capacity "
+        f"{state.capacity}, {int(state.num_alive())} live; median of 5, "
+        f"host clock around synchronize): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ev_ms.items()))
+
+    # the loop's step alone on the final state, to set the loop's ms per
+    # step beside phase 8's step on the synthetic face
+    step = F.make_face_step(res["cfg"], oc, res["umf_net"], res["pmf_net"],
+                            res["extent"], False, dev,
+                            total_iters=oc.iterations,
+                            warm_step=LOOP_WARM_STEP)
+    flags = F._step_flags(oc.iterations, LOOP_WARM_STEP,
+                          oc.iterations - 2500, False, oc)
+    carry = [state, gopt]
+
+    def one_step():
+        carry[0], carry[1], _ = step(carry[0], carry[1], batch, 0,
+                                     oc.iterations, flags)
+
+    step_ms = host_ms(one_step, reps=10)
+    prof = profile_runs(one_step)
+    log(f"[{card}] the loop's step alone on the final state: median "
+        f"{step_ms:.3f} ms over 10 steps (host clock around synchronize); "
+        f"profiled: {prof['wall_ms']:.3f} ms wall, {prof['device_ms']:.3f} "
+        f"ms of device kernels, {prof['launches']:.0f} kernel launches")
+    for kname, count, ms in prof["kernels"]:
+        log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+    return launches
 
 
 def main() -> int:
@@ -635,15 +852,21 @@ def main() -> int:
     for op, count, ms in prof["host"]:
         log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
 
+    # ---- 9. the adaptation loop at full width -----------------------------
+    loop_launches = adaptation_loop(card, dev, SIZE)
+
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())
     log(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "instag_torch/csrc/composite_fwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:190",
-        "launches": launches + train_launches["composite_fwd"],
+        "launches": (launches + train_launches["composite_fwd"]
+                     + loop_launches["composite_fwd"]),
         "launches_by_path": {"serving": launches,
-                             "training": train_launches["composite_fwd"]},
+                             "training": train_launches["composite_fwd"],
+                             "adaptation_loop":
+                                 loop_launches["composite_fwd"]},
         "max_abs_err": max(err_main, err34, err_wide,
                            *(c["fwd_err"] for c in train_cases.values())),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -654,7 +877,11 @@ def main() -> int:
         "name": "composite_bwd", "route": "cuda",
         "source": "instag_torch/csrc/composite_bwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:260",
-        "launches": train_launches["composite_bwd"],
+        "launches": (train_launches["composite_bwd"]
+                     + loop_launches["composite_bwd"]),
+        "launches_by_path": {"training": train_launches["composite_bwd"],
+                             "adaptation_loop":
+                                 loop_launches["composite_bwd"]},
         **{k: face_t["composite_bwd"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": bwd_err,
@@ -662,7 +889,11 @@ def main() -> int:
         "name": "scatter_add", "route": "cuda",
         "source": "instag_torch/csrc/scatter_add.cu",
         "replaces": "instag_tpu/ops/pallas_scatter.py:53",
-        "launches": train_launches["scatter_add_tiles"],
+        "launches": (train_launches["scatter_add_tiles"]
+                     + loop_launches["scatter_add_tiles"]),
+        "launches_by_path": {"training": train_launches["scatter_add_tiles"],
+                             "adaptation_loop":
+                                 loop_launches["scatter_add_tiles"]},
         **{k: face_t["scatter_add"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": max(face_t["scatter_add"]["max_abs_err"],

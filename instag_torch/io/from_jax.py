@@ -9,7 +9,8 @@ inverse of the layout map in instag_tpu/io/reference_convert.py:
   * Dense ``kernel`` [I, O]  -> Linear ``weight`` [O, I];
   * ``bias`` and hash-grid ``embeddings`` are copied as they are.
 
-The Gaussian state and the frame batch are carried field by field.
+The Gaussian state, its Adam state and the frame batch are carried field
+by field.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.gaussians import GaussianParams, GaussianState
+from ..models.gaussians import (PARAM_FIELDS, AdamState, GaussianParams,
+                                GaussianState)
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -57,11 +59,18 @@ def load_motion_net(net: nn.Module, flax_params: Mapping,
     return net.to(dev).eval()
 
 
+def _params(fields: Mapping[str, np.ndarray], dev) -> GaussianParams:
+    return GaussianParams(**{
+        f: torch.from_numpy(np.array(fields[f], dtype=np.float32)).to(dev)
+        for f in PARAM_FIELDS})
+
+
 def gaussian_state(fields: Mapping[str, np.ndarray], alive: np.ndarray,
                    active_sh_degree: int, max_sh_degree: int,
                    device: str | torch.device = "cuda",
                    stats: Mapping[str, np.ndarray] | None = None,
-                   spatial_lr_scale: float = 1.0) -> GaussianState:
+                   spatial_lr_scale: float = 1.0,
+                   dropped_children: int = 0) -> GaussianState:
     """A GaussianState from the JAX ``GaussianParams`` fields as numpy.
     ``stats`` may carry the JAX state's ``max_radii2d``, ``xyz_grad_accum``
     and ``denom``; those it lacks start at zero."""
@@ -70,16 +79,23 @@ def gaussian_state(fields: Mapping[str, np.ndarray], alive: np.ndarray,
     def t(x, dtype=np.float32):
         return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
 
-    params = GaussianParams(**{f: t(fields[f])
-                               for f in GaussianParams.__dataclass_fields__})
     stats = stats or {}
-    return GaussianState(params=params, alive=t(alive, bool),
+    return GaussianState(params=_params(fields, dev), alive=t(alive, bool),
                          active_sh_degree=int(active_sh_degree),
                          max_sh_degree=int(max_sh_degree),
                          spatial_lr_scale=float(spatial_lr_scale),
+                         dropped_children=int(dropped_children),
                          **{k: t(stats[k]) for k in ("max_radii2d",
                                                      "xyz_grad_accum",
                                                      "denom") if k in stats})
+
+
+def adam_state(mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray],
+               step: int, device: str | torch.device = "cuda") -> AdamState:
+    """An AdamState from the JAX ``AdamState``'s moments (``GaussianParams``
+    fields as numpy) and step."""
+    dev = resolve_device(device)
+    return AdamState(mu=_params(mu, dev), nu=_params(nu, dev), step=int(step))
 
 
 def frame_batch(arrays: Mapping[str, np.ndarray | None],

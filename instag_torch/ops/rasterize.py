@@ -209,34 +209,63 @@ def project_gaussians(cfg: RasterizeConfig, means3d, scales, rotations,
     return Projected(px, py, tz, conic, radius, visible, n_cam)
 
 
-def _tile_select(cfg: RasterizeConfig, proj: Projected):
-    """Per-tile front-most-K selection: (ids [T, K] int32, valid [T, K]
-    bool), nearest first; valid is a prefix of each row."""
-    T, K, tile = cfg.num_tiles, cfg.max_per_tile, cfg.tile
-    N = proj.px.shape[0]
-    dev = proj.px.device
+def _tile_hits(cfg: RasterizeConfig, proj: Projected):
+    """Per chunk of ``_SELECT_CHUNK`` tiles [t0, t1): (t0, t1, hit
+    [t1 - t0, N]), where a splat hits a tile when its 3-sigma square
+    overlaps the tile's closed pixel square."""
+    T, tile = cfg.num_tiles, cfg.tile
     r = proj.radius
     xmin, xmax = proj.px - r, proj.px + r
     ymin, ymax = proj.py - r, proj.py + r
+    for t0 in range(0, T, _SELECT_CHUNK):
+        t1 = min(T, t0 + _SELECT_CHUNK)
+        tids = torch.arange(t0, t1, device=proj.px.device)
+        tx = (tids % cfg.tiles_x).to(proj.px.dtype)
+        ty = (tids // cfg.tiles_x).to(proj.px.dtype)
+        x0, x1 = tx * tile, (tx + 1) * tile
+        y0, y1 = ty * tile, (ty + 1) * tile
+        yield t0, t1, ((xmax[None, :] >= x0[:, None])
+                       & (xmin[None, :] <= x1[:, None])
+                       & (ymax[None, :] >= y0[:, None])
+                       & (ymin[None, :] <= y1[:, None]))
+
+
+def _tile_select(cfg: RasterizeConfig, proj: Projected):
+    """Per-tile front-most-K selection: (ids [T, K] int32, valid [T, K]
+    bool), nearest first; valid is a prefix of each row."""
+    T, K = cfg.num_tiles, cfg.max_per_tile
+    N = proj.px.shape[0]
+    dev = proj.px.device
     neg_inf = torch.tensor(float("-inf"), device=dev)
     neg_depth = torch.where(proj.visible, -proj.depth, neg_inf)
     kk = min(K, N)
 
     ids = torch.zeros((T, K), dtype=torch.int32, device=dev)
     valid = torch.zeros((T, K), dtype=torch.bool, device=dev)
-    for t0 in range(0, T, _SELECT_CHUNK):
-        tids = torch.arange(t0, min(T, t0 + _SELECT_CHUNK), device=dev)
-        tx = (tids % cfg.tiles_x).to(proj.px.dtype)
-        ty = (tids // cfg.tiles_x).to(proj.px.dtype)
-        x0, x1 = tx * tile, (tx + 1) * tile
-        y0, y1 = ty * tile, (ty + 1) * tile
-        hit = ((xmax[None, :] >= x0[:, None]) & (xmin[None, :] <= x1[:, None])
-               & (ymax[None, :] >= y0[:, None]) & (ymin[None, :] <= y1[:, None]))
+    for t0, t1, hit in _tile_hits(cfg, proj):
         keys = torch.where(hit, neg_depth[None, :], neg_inf)     # [c, N]
         vals, idx = torch.topk(keys, kk, dim=-1)                 # nearest first
-        ids[t0:t0 + len(tids), :kk] = idx.to(torch.int32)
-        valid[t0:t0 + len(tids), :kk] = vals > float("-inf")
+        ids[t0:t1, :kk] = idx.to(torch.int32)
+        valid[t0:t1, :kk] = vals > float("-inf")
     return ids, valid
+
+
+@torch.no_grad()
+def selection_stats(cfg: RasterizeConfig, means3d, scales, rotations,
+                    viewmatrix, projmatrix, campos, tanfovx, tanfovy,
+                    active=None) -> dict:
+    """Per-tile hit counts of the visible splats, without selection: the
+    mean and the largest count, and the fraction of tiles whose count
+    exceeds ``max_per_tile`` (they composite only their front K), as 0-d
+    tensors on the input's device."""
+    proj = project_gaussians(cfg, means3d, scales, rotations, viewmatrix,
+                             projmatrix, campos, tanfovx, tanfovy, active)
+    hits = torch.cat([(hit & proj.visible[None, :]).sum(-1)
+                      for _, _, hit in _tile_hits(cfg, proj)])
+    return {"mean_hits": hits.to(torch.float32).mean(),
+            "max_hits": hits.max(),
+            "saturated_frac": (hits > cfg.max_per_tile).to(
+                torch.float32).mean()}
 
 
 class Prepared(NamedTuple):

@@ -1,37 +1,51 @@
-"""Few-shot face adaptation step (counterpart of instag_tpu/train/face.py's
-``make_face_block``, serial path, without the LPIPS phase).
+"""Few-shot face adaptation (counterpart of instag_tpu/train/face.py, serial
+path, without the LPIPS phase): the step and the ``train_face`` loop.
 
 One step renders the face branch with the PMF's align head and the UMF
 attention maps, and takes the loss of the JAX package's ``step_loss``:
   * L1 + lambda_dssim (1 - SSIM) against the ground truth painted green
     off the head and on the mouth (a 3x3 dilate-then-erode soft mouth mask
     while ``use_lpips``), and on the hair while ``hair_paint``;
-  * with ``has_priors``: the sapiens normal prior 0.01 and the depth prior
-    1e-2;
+  * with ``has_priors`` (not in ``long`` mode): the sapiens normal prior
+    0.01 and the depth prior 1e-2;
   * the motion regularisers 1e-5, the alpha regulariser 1e-3, and the
     lips and hair attention regularisers 1e-4.
 Then it takes the Gaussian Adam step at ``gaussian_lrs``, the UMF (AdamW +
 LambdaLR) and PMF (Adam) steps, and adds the densification statistics from
 the gradient of ``means2d_offset`` and ``radii > 0``.
 
+The loop runs the JAX loop's schedule: blocks that end at the next
+densification interval or 1000-step boundary, the per-step phase flags,
+the frame curriculum, and at block ends the SH-degree bump, densification
+(with a rising opacity floor), the opacity reset, the green/depth prune
+and, at log points, the adaptive capacity. Losses stay on the device and
+are read at log points only.
+
 The JAX package's LPIPS phase needs AlexNet weights that are not in the
-repository; it is not part of this step (``lpips_fn=None`` there).
+repository; the loop runs as the JAX loop does with ``lpips_enabled=False``
+(the phase flag still softens the mouth mask).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from ..config import OptimizationConfig
+from ..config import ModelConfig, OptimizationConfig
+from ..data.dataset import random_init_points, scene_extent
 from ..device import resolve_device
 from ..models import gaussians as G
-from ..ops.rasterize import RasterizeConfig
+from ..models.motion import (MotionNetwork, PersonalizedMotionNetwork,
+                             init_motion_params)
+from ..ops.rasterize import RasterizeConfig, selection_stats
 from ..render import render_motion
 from ..utils.losses import normalize_depth
+from ..utils.sh import eval_sh
 from .common import FrameBatch, gaussian_lrs, rect_mask, rgb_loss
 from .optim import pmf_optimizer, umf_optimizer
 
@@ -57,13 +71,15 @@ class _FaceStep:
     def __init__(self, cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                  umf_net: nn.Module, pmf_net: nn.Module,
                  spatial_lr_scale: float, has_priors: bool,
-                 device: str | torch.device):
+                 device: str | torch.device, total_iters: int,
+                 warm_step: int, long: bool):
         self.device = resolve_device(device)
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.umf_net, self.pmf_net = umf_net, pmf_net
         self.spatial_lr_scale = spatial_lr_scale
-        self.has_priors = has_priors
-        self.umf_opt, self.umf_sched = umf_optimizer(umf_net)
+        self.has_priors = has_priors and not long
+        self.umf_opt, self.umf_sched = umf_optimizer(
+            umf_net, total_iters=total_iters, warm_step=warm_step, long=long)
         self.pmf_opt = pmf_optimizer(pmf_net)
         self.green = torch.tensor([0.0, 1.0, 0.0], device=self.device)
 
@@ -180,23 +196,28 @@ class _FaceStep:
 def make_face_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                    umf_net: nn.Module, pmf_net: nn.Module,
                    spatial_lr_scale: float, has_priors: bool,
-                   device: str | torch.device = "cuda") -> _FaceStep:
+                   device: str | torch.device = "cuda",
+                   total_iters: int = 10000, warm_step: int = 3000,
+                   long: bool = False) -> _FaceStep:
     """The face adaptation step on ``device`` (the nets, the state and the
-    batch must live there), with the UMF's default learning-rate
-    schedule."""
+    batch must live there). The UMF's learning-rate schedule runs over
+    ``total_iters`` steps with ``warm_step`` and ``long`` (see
+    ``optim.umf_schedule``); ``long`` also drops the priors."""
     return _FaceStep(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
-                     has_priors, device)
+                     has_priors, device, total_iters, warm_step, long)
 
 
 def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                     umf_net: nn.Module, pmf_net: nn.Module,
                     spatial_lr_scale: float, has_priors: bool,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda",
+                    total_iters: int = 10000, warm_step: int = 3000,
+                    long: bool = False):
     """``block(state, gopt, batch, idxs, its, flags) -> (state, gopt,
     losses)``: one step per frame index in ``idxs`` at the iterations
     ``its``, all under ``flags``; ``losses`` [n] stays on the device."""
     step = make_face_step(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
-                          has_priors, device)
+                          has_priors, device, total_iters, warm_step, long)
 
     def block(state: G.GaussianState, gopt: G.AdamState, batch: FrameBatch,
               idxs, its, flags: Flags):
@@ -208,3 +229,235 @@ def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
         return state, gopt, torch.stack(losses)
 
     return block
+
+
+def face_patch_sizes(h: int, w: int) -> tuple[int, ...]:
+    """The LPIPS patch sides of the JAX loop (a lattice over [64, 96] px).
+    The loop has no LPIPS, but draws a patch index every step, as the JAX
+    loop does, so that both draw the same curriculum from one seed."""
+    return tuple(s for s in (64, 72, 80, 88, 96) if s <= min(h, w)) \
+        or (min(h, w),)
+
+
+def _tile_saturation(cfg: RasterizeConfig, state: G.GaussianState,
+                     batch: FrameBatch, i: int) -> torch.Tensor:
+    """The fraction of tiles of frame ``i`` whose true hit count exceeds
+    ``max_per_tile`` (the K-cut diagnostic of the log line), as a 0-d
+    tensor on the state's device."""
+    cam = batch.camera(i)
+    return selection_stats(cfg, state.params.xyz, state.get_scaling(),
+                           state.get_rotation(), cam.view_transform,
+                           cam.full_proj_transform, cam.camera_center,
+                           cam.tanfovx, cam.tanfovy,
+                           active=state.alive)["saturated_frac"]
+
+
+@torch.no_grad()
+def _prune_green_and_depth(state: G.GaussianState, opt: G.AdamState,
+                           campos: torch.Tensor, prune_depth: bool):
+    """Kill the splats whose colour seen from ``campos`` is background
+    green and, with ``prune_depth``, those behind z = -0.07."""
+    dirs = state.params.xyz - campos[None, :]
+    dirs = dirs / torch.clamp_min(
+        torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), 1e-8)
+    colors = torch.clamp_min(eval_sh(
+        state.max_sh_degree, state.get_features().transpose(-1, -2), dirs)
+        + 0.5, 0.0)
+    mask = ((colors[:, 0] < 30 / 255) & (colors[:, 1] > 225 / 255)
+            & (colors[:, 2] < 30 / 255))
+    if prune_depth:
+        mask = mask | (state.params.xyz[:, 2] < -0.07)
+    return G.prune_mask(state, opt, mask)
+
+
+def sample_frame_curriculum(rng: np.random.Generator, records_meta: dict,
+                            stack: list, it: int, warm_step: int,
+                            iterations: int, select_interval: int = 10
+                            ) -> int:
+    """The next frame index (host side). Frames are drawn without
+    replacement from ``stack``; every ``select_interval`` steps the draw
+    must fall in a window, tried up to 100 times before the nearest frame
+    is taken: before ``warm_step`` a window of mouth openings that moves
+    from the closed to the open bound over the run, after it a window of
+    blink values."""
+    if not stack:
+        stack.extend(range(len(records_meta["mouth"])))
+    idx = stack.pop(int(rng.integers(len(stack))))
+
+    mouth_step = 1.0 / max(iterations, 1)
+    if it % select_interval != 0:
+        return idx
+    if it < warm_step:
+        lb, ub = records_meta["mouth_lb"], records_meta["mouth_ub"]
+        lb = lb + (ub - lb) * 0.2
+        window = (ub - lb) * 0.5
+        lo = lb + mouth_step * it * (ub - lb)
+        hi = lo + window
+        lo = lo - window
+        vals = records_meta["mouth"]
+    else:
+        window = 0.4
+        lo = mouth_step * it
+        hi = lo + window
+        lo = lo - window * 1.5
+        vals = records_meta["blink"]
+
+    for _ in range(100):
+        if lo <= vals[idx] <= hi:
+            return idx
+        if not stack:
+            stack.extend(range(len(vals)))
+        idx = stack.pop(int(rng.integers(len(stack))))
+    arr = np.asarray(vals)
+    dist = np.where(arr < lo, lo - arr, np.where(arr > hi, arr - hi, 0.0))
+    return int(np.argmin(dist))
+
+
+def _step_flags(step: int, warm_step: int, lpips_start: int, long: bool,
+                opt_cfg: OptimizationConfig) -> Flags:
+    hair_iter = warm_step < step < lpips_start - 1000 and step % 7 != 0
+    return Flags(align=float(step > 1000),
+                 use_regs=float(step > warm_step),
+                 use_sapiens=float((not long) and step > warm_step + 2000),
+                 use_depth=float(step % opt_cfg.opacity_reset_interval > 100),
+                 hair_paint=float(hair_iter),
+                 # the phase also softens the mouth mask, so it runs
+                 # without LPIPS too
+                 use_lpips=float(step > lpips_start))
+
+
+def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
+               batch: FrameBatch, *, umf_net: nn.Module | None = None,
+               pmf_net: nn.Module | None = None, long: bool = False,
+               log_every: int = 500, eval_fn=None, warm_step: int = 3000,
+               seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    """Adapt a face cloud and the UMF to the frames of ``batch`` (on
+    ``device``) over ``opt_cfg.iterations`` steps.
+
+    ``umf_net`` / ``pmf_net`` are the starting nets (trained in place and
+    moved to ``device``); absent, they start from ``seed`` through
+    ``torch.Generator``s. The cloud starts from ``random_init_points(
+    model_cfg.init_num, seed)``; the curriculum draws from
+    ``numpy.random.default_rng(seed)`` and the split children from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. ``eval_fn(end,
+    state, umf_net, pmf_net)`` runs at log points. Returns the state, its
+    Adam state ``gopt``, the nets, the per-step ``losses``, the raster
+    ``cfg``, the scene ``extent`` and ``max_sh_degree``."""
+    dev = resolve_device(device)
+    if batch.image.device.type != dev.type:
+        raise ValueError(f"batch lives on {batch.image.device}, not {dev}")
+    has_priors = batch.normal is not None
+    _, extent = scene_extent(batch.camera_center.cpu().numpy())
+    h, w = batch.image.shape[1:3]
+    cfg = RasterizeConfig(h, w, max_per_tile=model_cfg.max_per_tile,
+                          approx_topk=model_cfg.approx_topk)
+
+    iterations = opt_cfg.iterations
+    densify_until = iterations - 1000
+    lpips_start = densify_until - 1500
+
+    max_sh = model_cfg.sh_degree if long else 1
+    cap_max = model_cfg.resolve_capacity()
+    adaptive = model_cfg.adaptive_capacity
+    det_slots = model_cfg.deterministic_slots
+    capacity = (G.adaptive_start_capacity(model_cfg.init_num, cap_max)
+                if adaptive else cap_max)
+    xyz, colors = random_init_points(model_cfg.init_num, seed)
+    state = G.create_from_points(torch.from_numpy(xyz).to(dev),
+                                 torch.from_numpy(colors).to(dev), capacity,
+                                 max_sh, extent)
+    gopt = G.adam_init(state.params)
+
+    if umf_net is None:
+        umf_net = init_motion_params(MotionNetwork(model_cfg.audio_extractor),
+                                     torch.Generator().manual_seed(2 * seed))
+    if pmf_net is None:
+        pmf_net = init_motion_params(
+            PersonalizedMotionNetwork("face", model_cfg.audio_extractor),
+            torch.Generator().manual_seed(2 * seed + 1))
+    umf_net, pmf_net = umf_net.to(dev), pmf_net.to(dev)
+    step = make_face_step(cfg, opt_cfg, umf_net, pmf_net, extent, has_priors,
+                          dev, total_iters=iterations, warm_step=warm_step,
+                          long=long)
+
+    n_patches = len(face_patch_sizes(h, w))
+    mouth = batch.mouth_bound.cpu()
+    meta = {"mouth": mouth[:, 2].tolist(), "blink": batch.blink.tolist(),
+            "mouth_lb": float(mouth[0, 0]), "mouth_ub": float(mouth[0, 1])}
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    stack: list[int] = []
+    losses: list[torch.Tensor] = []      # one [n] tensor per block
+    dropped_seen = 0
+    t0 = time.time()
+
+    interval = opt_cfg.densification_interval
+    it = 1
+    while it <= iterations:
+        # a block ends at the next event boundary: densification interval
+        # or 1000-step SH bump
+        end = min(iterations, ((it - 1) // interval + 1) * interval,
+                  ((it - 1) // 1000 + 1) * 1000)
+        n = end - it + 1
+        block_losses = []
+        for s in range(it, end + 1):
+            i = sample_frame_curriculum(rng, meta, stack, s, warm_step,
+                                        iterations)
+            rng.integers(n_patches)     # the JAX loop's LPIPS patch draw
+            state, gopt, loss = step(state, gopt, batch, i, s, _step_flags(
+                s, warm_step, lpips_start, long, opt_cfg))
+            block_losses.append(loss)
+        losses.append(torch.stack(block_losses))
+        it = end + 1
+
+        # host-side events at block ends
+        if end % 1000 == 0:
+            state = G.one_up_sh_degree(state)
+        if opt_cfg.densify_from_iter < end < densify_until \
+                and end % interval == 0:
+            floor = 0.05 + 0.25 * end / densify_until
+            noise = torch.randn((2, state.capacity, 3), generator=gen,
+                                device=dev)
+            state, gopt = G.densify_and_prune(
+                state, gopt, noise, opt_cfg.densify_grad_threshold, floor,
+                extent,
+                20.0 if end > opt_cfg.opacity_reset_interval else None,
+                opt_cfg.percent_dense)
+        if (not long) and end % opt_cfg.opacity_reset_interval == 0 \
+                and end < densify_until:
+            state, gopt = G.reset_opacity(state, gopt)
+        if end > opt_cfg.densify_from_iter and end % interval == 0:
+            state, gopt = _prune_green_and_depth(
+                state, gopt, batch.camera_center[i], not long)
+
+        if end % log_every < n:
+            # one read back for everything the log line needs
+            sat = _tile_saturation(cfg, state, batch, i)
+            recent = losses[-max(1, log_every // interval):]
+            vals = torch.cat([state.num_alive().to(torch.float32)[None],
+                              sat[None], *recent]).tolist()
+            n_alive, sat, recent = int(vals[0]), vals[1], vals[2:]
+            dropped = state.dropped_children
+            print(f"[face {end}/{iterations}] loss="
+                  f"{np.mean(recent[-log_every:]):.4f} pts={n_alive} "
+                  + (f"capacity_dropped={dropped} " if dropped else "")
+                  + (f"tile_sat={sat * 100:.1f}% " if sat > 0 else "")
+                  + f"t={time.time() - t0:.0f}s", flush=True)
+            if adaptive:
+                new_cap = G.adaptive_capacity_target(
+                    n_alive, state.capacity, cap_max,
+                    allow_shrink=(end % 2000 < n) and not det_slots)
+                if dropped > dropped_seen:   # saturated inside the window
+                    new_cap = max(new_cap, min(state.capacity * 2, cap_max))
+                    dropped_seen = dropped
+                if new_cap != state.capacity:
+                    print(f"[face] capacity {state.capacity} -> {new_cap} "
+                          f"(alive {n_alive})", flush=True)
+                    state, gopt = G.pack_resize(state, gopt, new_cap,
+                                                keep_slots=det_slots)
+            if eval_fn is not None:
+                eval_fn(end, state, umf_net, pmf_net)
+
+    return dict(state=state, gopt=gopt, umf_net=umf_net, pmf_net=pmf_net,
+                losses=torch.cat(losses).tolist() if losses else [],
+                cfg=cfg, extent=extent, max_sh_degree=max_sh)

@@ -4,8 +4,8 @@ instag_tpu/train/optim.py), with the JAX package's parameter groups.
   * UMF: AdamW, betas (0.9, 0.99), eps 1e-8: ``net`` at lr_net with no
     decay, ``encoder`` at lr with decay 0.01, ``audio_att`` at 5 lr_net with
     decay 1e-4, ``align`` at lr_net / 2; a LambdaLR multiplier of 0.1 below
-    ``warm_step``, then 0.5 ** (step / total) (the JAX package's
-    ``long`` mode, 0.1 **, belongs to the long-clip trainer, not ported).
+    ``warm_step``, then 0.5 ** (step / total), or 0.1 ** (step / total) in
+    ``long`` mode.
   * PMF: Adam, betas (0.9, 0.999), eps 1e-15, constant rates (``net``
     lr_net, ``encoder`` lr, ``audio_att`` 5 lr_net with L2 decay 1e-4 added
     to its gradient, ``align`` lr_net / 2).
@@ -41,14 +41,18 @@ def _groups(net: nn.Module, settings: dict) -> list[dict]:
             for label, kw in settings.items() if label in by_label]
 
 
-def umf_schedule(total_iters: int, warm_step: int = 3000):
+def umf_schedule(total_iters: int, warm_step: int = 3000,
+                 long: bool = False):
+    base = 0.1 if long else 0.5
+
     def mult(step: int) -> float:
-        return 0.1 if step < warm_step else 0.5 ** (step / total_iters)
+        return 0.1 if step < warm_step else base ** (step / total_iters)
     return mult
 
 
 def umf_optimizer(net: nn.Module, lr: float = 5e-3, lr_net: float = 5e-4,
-                  total_iters: int = 10000, warm_step: int = 3000):
+                  total_iters: int = 10000, warm_step: int = 3000,
+                  long: bool = False):
     """(AdamW, LambdaLR) over ``net``'s parameters; step the scheduler
     after every optimizer step."""
     opt = torch.optim.AdamW(_groups(net, {
@@ -58,7 +62,7 @@ def umf_optimizer(net: nn.Module, lr: float = 5e-3, lr_net: float = 5e-4,
         "align": dict(lr=lr_net / 2, weight_decay=0.0),
     }), betas=(0.9, 0.99), eps=1e-8)
     sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, umf_schedule(total_iters, warm_step))
+        opt, umf_schedule(total_iters, warm_step, long))
     return opt, sched
 
 

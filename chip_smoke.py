@@ -44,7 +44,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
      the CPU; its wall time and ms per step (host clock around
      synchronize), each event's time on the final state, the cloud's
      construction with its kNN, and the live count and capacity at each
-     log point.
+     log point (the loop runs without LPIPS: its phase would start at step
+     1, ``iterations - 2500`` being below 0);
+ 10. the mouth loop at full width (``train.mouth.train_mouth`` under phase
+     9's face bundle: the same batch, schedule and warm step, 10000 initial
+     mouth splats at SH degree 2, deepspeech nets): finite losses that
+     fall, one launch of each kernel per step, a densification that changed
+     the live count, SH at the full degree, a finite mouth render from the
+     final state, and the softening of greenish splats on the card equal
+     to the CPU on the final state; its ms per step, each event's time, and
+     one profiled step;
+ 11. the fusion loop at full width (``train.fuse.train_fuse`` on the face
+     and mouth bundles, 200 steps, LPIPS from step 101 with random
+     features unless converted weights are present): the snug pack of both
+     clouds, finite losses, two launches of each kernel per step, the
+     frozen geometry bit-equal before and after, and a finite fused 512x512
+     frame from the result through ``make_synthesis_fn``; ms per step
+     before and after LPIPS starts, and one profiled fusion step without
+     and one with LPIPS. Also one face step of phase 7's kind in the LPIPS
+     phase: a finite loss and a non-zero LPIPS term.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -85,6 +103,8 @@ LOOP_OPT = dict(iterations=1200, densify_from_iter=100,
 LOOP_WARM_STEP = 300
 LOOP_LOG_EVERY = 100
 DENSIFY_TOL = 1e-6       # card vs CPU densify: rtol and atol on parameters
+SOFTEN_TOL = 1e-6        # card vs CPU softening: rtol and atol on fields
+FUSE_STEPS = 200         # phase 11; LPIPS from FUSE_STEPS // 2 + 1
 
 
 def log(*args):
@@ -360,9 +380,17 @@ def host_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
-def adaptation_loop(card: str, dev: torch.device, size: int) -> dict:
+def kernel_fns():
+    """The three kernel wrappers, whose ``launches`` count their launches."""
+    from instag_torch.ops.composite import composite_bwd, composite_fwd
+    from instag_torch.ops.scatter import scatter_add_tiles
+    return composite_fwd, composite_bwd, scatter_add_tiles
+
+
+def adaptation_loop(card: str, dev: torch.device, size: int):
     """Phase 9: ``train_face`` at full width, its checks and its times.
-    Returns each kernel's launches in the loop."""
+    Returns each kernel's launches in the loop, the loop's result (the face
+    bundle of phases 10 and 11), its batch, meta and nets."""
     from instag_torch.bench_utils import (orbit_frame_batch,
                                           synthetic_motion_params)
     from instag_torch.config import ModelConfig, OptimizationConfig
@@ -376,7 +404,7 @@ def adaptation_loop(card: str, dev: torch.device, size: int) -> dict:
 
     model_cfg = ModelConfig()
     oc = OptimizationConfig(**LOOP_OPT)
-    batch = orbit_frame_batch(size, LOOP_FRAMES, device=dev)
+    batch, meta = orbit_frame_batch(size, LOOP_FRAMES, device=dev)
     nets = synthetic_motion_params(seed=2, device=dev)
 
     # count each event's live splats before and after (device tensors,
@@ -408,9 +436,9 @@ def adaptation_loop(card: str, dev: torch.device, size: int) -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = F.train_face(
-            model_cfg, oc, batch, umf_net=nets["face_umf"],
+            model_cfg, oc, batch, meta, umf_net=nets["face_umf"],
             pmf_net=nets["face_pmf"], log_every=LOOP_LOG_EVERY,
-            warm_step=LOOP_WARM_STEP, device=dev,
+            warm_step=LOOP_WARM_STEP, lpips_enabled=False, device=dev,
             eval_fn=lambda end, st, *_: log_points.append(
                 (end, st.num_alive(), st.capacity)))
         torch.cuda.synchronize()
@@ -541,6 +569,332 @@ def adaptation_loop(card: str, dev: torch.device, size: int) -> dict:
         f"ms of device kernels, {prof['launches']:.0f} kernel launches")
     for kname, count, ms in prof["kernels"]:
         log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+    return launches, res, batch, meta, nets
+
+
+def mouth_loop(card: str, dev: torch.device, face: dict, batch, meta,
+               nets: dict):
+    """Phase 10: ``train_mouth`` at full width under the face bundle
+    ``face``, its checks and its times. Returns each kernel's launches in
+    the loop and the loop's result (the mouth bundle of phase 11)."""
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.models import gaussians as G
+    from instag_torch.render import render_motion_mouth
+    from instag_torch.train import mouth as M
+    from instag_torch.utils.sh import rgb2sh
+
+    model_cfg = ModelConfig()
+    oc = OptimizationConfig(**LOOP_OPT)
+    events = {k: [] for k in ("densify", "reset", "soften", "pack_resize")}
+
+    def counted(kind, fn):
+        def run(state, *args, **kw):
+            out = fn(state, *args, **kw)
+            new = out[0] if isinstance(out, tuple) else out
+            softened = ((new.params.scaling != state.params.scaling).any(-1)
+                        .sum() if new.capacity == state.capacity else 0)
+            events[kind].append((state.num_alive(), new.num_alive(),
+                                 softened))
+            return out
+        return run
+
+    originals = {(G, "densify_and_prune"): "densify",
+                 (G, "reset_opacity"): "reset",
+                 (M, "_soften_green"): "soften",
+                 (G, "pack_resize"): "pack_resize"}
+    saved = {key: getattr(*key) for key in originals}
+    for (mod, name), kind in originals.items():
+        setattr(mod, name, counted(kind, saved[mod, name]))
+    fns = kernel_fns()
+    try:
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = M.train_mouth(model_cfg, oc, batch, meta, face,
+                            umf_net=nets["mouth_umf"],
+                            pmf_net=nets["mouth_pmf"],
+                            log_every=LOOP_LOG_EVERY,
+                            warm_step=LOOP_WARM_STEP, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {fn.__name__: fn.launches for fn in fns}
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    steps = oc.iterations
+    state, gopt, losses = res["state"], res["gopt"], np.array(res["losses"])
+    log(f"[{card}] mouth loop: {steps} steps in {wall:.2f} s wall, "
+        f"{wall * 1e3 / steps:.2f} ms per step (events and set-up included; "
+        f"host clock around synchronize); kernel launches {launches}")
+    counts = {k: [tuple(int(x) for x in c) for c in v]
+              for k, v in events.items()}
+    log(f"  events (live before, after, rows softened): {counts}")
+    first, last = losses[:100].mean(), losses[-100:].mean()
+    log(f"  loss: mean of the first 100 steps {first:.5f}, of the last 100 "
+        f"{last:.5f}; SH degree {state.active_sh_degree} of "
+        f"{state.max_sh_degree}, capacity {state.capacity}, live "
+        f"{int(state.num_alive())}, dropped children "
+        f"{state.dropped_children}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing mouth losses")
+    if not last < first:
+        raise AssertionError("the mouth loop's loss did not fall")
+    if any(v != steps for v in launches.values()):
+        raise AssertionError(f"expected one launch of each kernel per mouth "
+                             f"step: {launches}")
+    if not any(b != a for b, a, _ in counts["densify"]):
+        raise AssertionError("no mouth densification changed the live count")
+    rest_k = (model_cfg.sh_degree + 1) ** 2 - 1
+    if not (state.max_sh_degree == model_cfg.sh_degree
+            and state.params.features_rest.shape[1] == rest_k
+            and state.active_sh_degree == 1):
+        raise AssertionError(f"mouth SH degree {state.active_sh_degree} of "
+                             f"{state.max_sh_degree}")
+    with torch.no_grad():
+        frame = render_motion_mouth(
+            res["cfg"], batch.camera(0), state, mouth_umf=res["umf_net"],
+            face_state=face["state"], face_umf=face["umf_net"],
+            aud=batch.auds[0], bg=torch.zeros(3, device=dev),
+            pmf=res["pmf_net"], align=1.0, k=30).out
+    if not torch.isfinite(frame.image).all():
+        raise AssertionError("non-finite mouth frame")
+
+    # the softening (no event before step 2000) on the card and the CPU, on
+    # the final state and on a copy with every other live splat painted
+    # green (the final state may hold no greenish splat)
+    campos = batch.camera_center[0]
+    live = torch.nonzero(state.alive).flatten()[::2]
+    dc, rest = (state.params.features_dc.clone(),
+                state.params.features_rest.clone())
+    dc[live, 0] = rgb2sh(torch.tensor([0.2, 0.9, 0.1], device=dev))
+    rest[live] = 0.0
+    painted = state.replace(params=G.GaussianParams(**dict(
+        vars(state.params), features_dc=dc, features_rest=rest)))
+    softened = []
+    for st in (state, painted):
+        g_st = M._soften_green(st, campos)
+        c_st = M._soften_green(st.to("cpu"), campos.cpu())
+        g_rows = (g_st.params.scaling != st.params.scaling).any(-1).cpu()
+        c_rows = (c_st.params.scaling != st.params.scaling.cpu()).any(-1)
+        if not torch.equal(g_rows, c_rows):
+            raise AssertionError("soften: card and CPU pick other splats")
+        worst = 0.0
+        for a, b in ((g_st.params.opacity, c_st.params.opacity),
+                     (g_st.params.scaling, c_st.params.scaling),
+                     (g_st.xyz_grad_accum, c_st.xyz_grad_accum)):
+            worst = max(worst, float(((a.cpu() - b).abs()
+                                      / (SOFTEN_TOL * (1 + b.abs()))).max()))
+        if not worst <= 1.0:
+            raise AssertionError(f"soften: card and CPU differ, {worst:.2f}x "
+                                 f"the tolerance")
+        softened.append((int(c_rows.sum()), worst))
+    if not softened[1][0] >= len(live):
+        raise AssertionError(f"soften missed painted splats: {softened}")
+    log(f"  soften on the card vs the CPU: the same splats softened on the "
+        f"final state ({softened[0][0]}) and with {len(live)} live splats "
+        f"painted green ({softened[1][0]}), fields within "
+        f"{max(w for _, w in softened):.3f} of rtol = atol = {SOFTEN_TOL}; "
+        f"final mouth frame finite, alpha max {float(frame.alpha.max()):.3f}")
+
+    noise = torch.randn((2, state.capacity, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6))
+    grads = state.xyz_grad_accum / state.denom.clamp_min(1)
+    args = (float(grads[state.alive & (state.denom > 0)].median()), 0.1,
+            res["extent"], 20.0, oc.percent_dense)
+    ev_ms = {
+        "densify_and_prune": host_ms(
+            lambda: G.densify_and_prune(state, gopt, noise, *args)),
+        "soften_green": host_ms(lambda: M._soften_green(state, campos)),
+        "reset_opacity": host_ms(lambda: G.reset_opacity(state, gopt)),
+        "pack_resize (x2)": host_ms(
+            lambda: G.pack_resize(state, gopt, 2 * state.capacity)),
+    }
+    log(f"[{card}] mouth event times on the final state (capacity "
+        f"{state.capacity}, {int(state.num_alive())} live; median of 5, "
+        f"host clock around synchronize): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ev_ms.items()))
+
+    step = M.make_mouth_step(res["cfg"], oc, res["umf_net"], res["pmf_net"],
+                             face["state"], face["umf_net"], res["extent"],
+                             dev, total_iters=oc.iterations,
+                             warm_step=LOOP_WARM_STEP)
+    flags = M.MouthFlags(align=1.0, use_regs=1.0)
+    carry = [state, gopt]
+
+    def one_step():
+        carry[0], carry[1], _ = step(carry[0], carry[1], batch, 0,
+                                     oc.iterations, 30, flags)
+
+    step_ms = host_ms(one_step, reps=10)
+    prof = profile_runs(one_step)
+    log(f"[{card}] the mouth step alone on the final state: median "
+        f"{step_ms:.3f} ms over 10 steps (host clock around synchronize); "
+        f"profiled: {prof['wall_ms']:.3f} ms wall, {prof['device_ms']:.3f} "
+        f"ms of device kernels, {prof['launches']:.0f} kernel launches")
+    for kname, count, ms in prof["kernels"]:
+        log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+    return launches, res
+
+
+def lpips_face_step(card: str, dev: torch.device):
+    """Phase 11's face step of phase 7's kind in the LPIPS phase: the loss
+    with and without the LPIPS model on the same state."""
+    from instag_torch.bench_utils import (synthetic_frame_batch,
+                                          synthetic_motion_params,
+                                          synthetic_state)
+    from instag_torch.config import OptimizationConfig
+    from instag_torch.models.lpips import load_lpips_params
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.train.face import Flags, face_patch_sizes, make_face_step
+
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
+    tr_nets = synthetic_motion_params(seed=1, device=dev)
+    st = synthetic_state(30000, 32768, seed=0, scale=0.004, device=dev)
+    batch = synthetic_frame_batch(SIZE, n_frames=4, device=dev)
+    flags = Flags(align=1.0, use_regs=1.0, use_sapiens=0.0, use_depth=1.0,
+                  hair_paint=0.0, use_lpips=1.0)
+    lpips, real = load_lpips_params(device=dev)
+    nets = (tr_nets["face_umf"], tr_nets["face_pmf"])
+    sizes = face_patch_sizes(SIZE, SIZE)
+    with_lp = make_face_step(cfg, OptimizationConfig(), *nets, 1.0, False,
+                             device=dev, lpips=lpips, lpips_patches=sizes,
+                             lips_crop=96)
+    without = make_face_step(cfg, OptimizationConfig(), *nets, 1.0, False,
+                             device=dev)
+    mid = len(sizes) // 2
+    loss_lp = float(with_lp.loss_and_grads(st, batch, 0, flags, mid)[0])
+    loss = float(without.loss_and_grads(st, batch, 0, flags)[0])
+    log(f"face step in the LPIPS phase (patch side {sizes[mid]}, LPIPS "
+        f"{'converted weights' if real else 'RANDOM FEATURES (real=False)'}"
+        f"): loss {loss_lp:.6f}, without the LPIPS term {loss:.6f}, LPIPS "
+        f"term {loss_lp - loss:.3e}")
+    if not (np.isfinite(loss_lp) and loss_lp - loss > 0):
+        raise AssertionError("the LPIPS phase added no finite term")
+
+
+def fuse_loop(card: str, dev: torch.device, face: dict, mouth: dict,
+              batch) -> dict:
+    """Phase 11: ``train_fuse`` at full width on the face and mouth
+    bundles, its checks and its times. Returns each kernel's launches in
+    the loop."""
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.models import gaussians as G
+    from instag_torch.models.lpips import load_lpips_params
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.synthesize import SynthesisModel, make_synthesis_fn
+    from instag_torch.train import fuse as FU
+
+    # the card is synchronized before each block's first step and after its
+    # last (steps 1, 100, 101 and 200), not in between
+    marks = {}
+    make_step = FU.make_fuse_step
+
+    def timed_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(*a):
+            it = a[6]
+            if it % 100 == 1:
+                torch.cuda.synchronize()
+                marks[it] = time.perf_counter()
+            out = step(*a)
+            if it % 100 == 0:
+                torch.cuda.synchronize()
+                marks[-it] = time.perf_counter()
+            return out
+        return run
+
+    frozen = {"face": ("xyz", "scaling", "rotation"),
+              "mouth": ("xyz", "scaling", "rotation", "opacity")}
+    bundles = {"face": face, "mouth": mouth}
+    before = {b: {f: getattr(bundles[b]["state"].params, f)[
+        bundles[b]["state"].alive].clone() for f in frozen[b]}
+        for b in frozen}
+    caps = {b: (bundles[b]["state"].capacity,
+                int(bundles[b]["state"].num_alive())) for b in frozen}
+    real = load_lpips_params(device=dev)[1]
+    log(f"fusion LPIPS: {'converted AlexNet weights' if real else 'RANDOM FEATURES (real=False): no converted weights present'}")
+    oc = OptimizationConfig(iterations=FUSE_STEPS)
+    fns = kernel_fns()
+    FU.make_fuse_step = timed_step
+    try:
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = FU.train_fuse(ModelConfig(), oc, batch, face, mouth,
+                            log_every=LOOP_LOG_EVERY, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {fn.__name__: fn.launches for fn in fns}
+    finally:
+        FU.make_fuse_step = make_step
+    losses = np.array(res["losses"])
+    after = {b: res[f"{b}_state"] for b in frozen}
+    block_step_ms = [(marks[-e] - marks[e - 99]) * 1e3 / 100
+                     for e in range(100, FUSE_STEPS + 1, 100)]
+    log(f"[{card}] fusion loop: {FUSE_STEPS} steps in {wall:.2f} s wall, "
+        f"{wall * 1e3 / FUSE_STEPS:.2f} ms per step (set-up included; host "
+        f"clock around synchronize); per block of 100 steps "
+        f"{[round(x, 3) for x in block_step_ms]} ms a step (LPIPS from step "
+        f"{FUSE_STEPS // 2 + 1}); kernel launches {launches}")
+    log("  snug pack (capacity, live before -> capacity after): " + ", ".join(
+        f"{b} {caps[b][0]}, {caps[b][1]} -> {after[b].capacity}"
+        for b in frozen))
+    log(f"  loss: steps 1-100 mean {losses[:100].mean():.5f}, steps 101-200 "
+        f"mean {losses[100:].mean():.5f}; first {losses[0]:.5f}, last "
+        f"{losses[-1]:.5f}")
+    if len(losses) != FUSE_STEPS or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing fusion losses")
+    if any(v != 2 * FUSE_STEPS for v in launches.values()):
+        raise AssertionError(f"expected two launches of each kernel per "
+                             f"fusion step: {launches}")
+    for b in frozen:
+        st = after[b]
+        want = 2 ** (2 * max(caps[b][1], 1) - 1).bit_length()
+        if st.capacity != min(max(want, 2048), caps[b][0]):
+            raise AssertionError(f"{b}: capacity {st.capacity} after the pack")
+        for f in frozen[b]:
+            if not torch.equal(getattr(st.params, f)[st.alive],
+                               before[b][f]):
+                raise AssertionError(f"fusion moved the frozen {b} {f}")
+    log("  frozen geometry bit-equal before and after: "
+        + ", ".join(f"{b} {'/'.join(frozen[b])}" for b in frozen))
+
+    # one step without and one with LPIPS on the final states, profiled
+    lpips = load_lpips_params(device=dev)[0]
+    step = FU.make_fuse_step(res["cfg"], oc, res["face_umf_net"],
+                             res["mouth_umf_net"], res["face_pmf_net"],
+                             res["mouth_pmf_net"], 1.0, dev, lpips,
+                             FU.fuse_patch_sizes(SIZE, SIZE))
+    for use_lpips in (0.0, 1.0):
+        prof = profile_runs(lambda: step(
+            after["face"], G.adam_init(after["face"].params),
+            after["mouth"], G.adam_init(after["mouth"].params), batch, 0,
+            FUSE_STEPS, 0, use_lpips))
+        log(f"[{card}] profiled fusion step, LPIPS {'on' if use_lpips else 'off'}"
+            f" (patch side 32): {prof['wall_ms']:.3f} ms wall, "
+            f"{prof['device_ms']:.3f} ms of device kernels "
+            f"({prof['device_ms'] / prof['wall_ms']:.1%} busy), "
+            f"{prof['launches']:.0f} kernel launches")
+        for kname, count, ms in prof["kernels"][:5]:
+            log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
+    model = SynthesisModel(res["face_state"], res["mouth_state"],
+                           res["face_umf_net"], res["mouth_umf_net"],
+                           res["face_pmf_net"], res["mouth_pmf_net"])
+    img = make_synthesis_fn(cfg, device=dev)(
+        model, batch.camera(0), batch.auds[0], batch.au_exp[0],
+        batch.bg_image(0))
+    torch.cuda.synchronize()
+    if not (img.dtype == torch.uint8 and img.shape == (SIZE, SIZE, 3)):
+        raise AssertionError(f"fused frame {img.dtype} {tuple(img.shape)}")
+    gt = batch.image[0].to(torch.float32)
+    log(f"  fused frame from the result: uint8 {tuple(img.shape)}, mean "
+        f"{float(img.float().mean()):.3f}, mean |frame - GT| "
+        f"{float((img.float() - gt).abs().mean()):.3f} (of 255)")
     return launches
 
 
@@ -853,7 +1207,17 @@ def main() -> int:
         log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
 
     # ---- 9. the adaptation loop at full width -----------------------------
-    loop_launches = adaptation_loop(card, dev, SIZE)
+    loop_launches, face_res, loop_batch, loop_meta, loop_nets = \
+        adaptation_loop(card, dev, SIZE)
+
+    # ---- 10. the mouth loop at full width ----------------------------------
+    mouth_launches, mouth_res = mouth_loop(card, dev, face_res, loop_batch,
+                                           loop_meta, loop_nets)
+
+    # ---- 11. the fusion loop at full width ---------------------------------
+    lpips_face_step(card, dev)
+    fuse_launches = fuse_loop(card, dev, face_res, mouth_res, loop_batch)
+    later = {"mouth_loop": mouth_launches, "fuse_loop": fuse_launches}
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())
@@ -862,11 +1226,14 @@ def main() -> int:
         "source": "instag_torch/csrc/composite_fwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:190",
         "launches": (launches + train_launches["composite_fwd"]
-                     + loop_launches["composite_fwd"]),
+                     + loop_launches["composite_fwd"]
+                     + sum(v["composite_fwd"] for v in later.values())),
         "launches_by_path": {"serving": launches,
                              "training": train_launches["composite_fwd"],
                              "adaptation_loop":
-                                 loop_launches["composite_fwd"]},
+                                 loop_launches["composite_fwd"],
+                             **{k: v["composite_fwd"]
+                                for k, v in later.items()}},
         "max_abs_err": max(err_main, err34, err_wide,
                            *(c["fwd_err"] for c in train_cases.values())),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
@@ -878,10 +1245,13 @@ def main() -> int:
         "source": "instag_torch/csrc/composite_bwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:260",
         "launches": (train_launches["composite_bwd"]
-                     + loop_launches["composite_bwd"]),
+                     + loop_launches["composite_bwd"]
+                     + sum(v["composite_bwd"] for v in later.values())),
         "launches_by_path": {"training": train_launches["composite_bwd"],
                              "adaptation_loop":
-                                 loop_launches["composite_bwd"]},
+                                 loop_launches["composite_bwd"],
+                             **{k: v["composite_bwd"]
+                                for k, v in later.items()}},
         **{k: face_t["composite_bwd"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": bwd_err,
@@ -890,10 +1260,13 @@ def main() -> int:
         "source": "instag_torch/csrc/scatter_add.cu",
         "replaces": "instag_tpu/ops/pallas_scatter.py:53",
         "launches": (train_launches["scatter_add_tiles"]
-                     + loop_launches["scatter_add_tiles"]),
+                     + loop_launches["scatter_add_tiles"]
+                     + sum(v["scatter_add_tiles"] for v in later.values())),
         "launches_by_path": {"training": train_launches["scatter_add_tiles"],
                              "adaptation_loop":
-                                 loop_launches["scatter_add_tiles"]},
+                                 loop_launches["scatter_add_tiles"],
+                             **{k: v["scatter_add_tiles"]
+                                for k, v in later.items()}},
         **{k: face_t["scatter_add"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": max(face_t["scatter_add"]["max_abs_err"],

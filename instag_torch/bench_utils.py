@@ -172,8 +172,14 @@ def orbit_frame_batch(size: int, n_frames: int = 16, seed: int = 0,
     lower-half rectangles of its landmarks, and ``mouth_bound`` [lb, ub,
     opening] from the openings. Audio windows follow the opening through a
     random projection; blink, AU vectors and the noise come from
-    ``numpy.random.default_rng(seed)``."""
-    from .train.common import FrameBatch
+    ``numpy.random.default_rng(seed)``.
+
+    Returns ``(batch, meta)``: ``meta`` the float64 FrameMeta of the same
+    frames, with the blink draws before their float32 rounding, the
+    openings and their bounds, AU25 as the JAX scene writes it (1.2 plus
+    the opening phase) clipped at its p95 with its percentiles, and each
+    mouth mask's pixel count."""
+    from .train.common import FrameBatch, FrameMeta
 
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -186,7 +192,7 @@ def orbit_frame_batch(size: int, n_frames: int = 16, seed: int = 0,
                               "camera_center", "image", "bg", "face_mask",
                               "hair_mask", "mouth_mask", "lips_rect",
                               "lhalf_rect")}
-    opens, openness = [], []
+    opens, openness, mouth_px = [], [], []
     for i in range(f):
         phase = float(np.sin(2 * np.pi * i / 10.0))
         cx = w / 2 + 3.0 * np.cos(i / 5.0)
@@ -214,6 +220,7 @@ def orbit_frame_batch(size: int, n_frames: int = 16, seed: int = 0,
                                                      endpoint=False))
         opens.append(int(inner_y.max()) - int(inner_y.min()))
         openness.append(phase)
+        mouth_px.append(int((mouth | teeth).sum()))
         view_t, full_t, center = _orbit_camera(i, f, fov)
         for k, v in (("view_transform", view_t),
                      ("full_proj_transform", full_t),
@@ -232,9 +239,13 @@ def orbit_frame_batch(size: int, n_frames: int = 16, seed: int = 0,
     proj = rng.normal(size=(8, aud_dim, 16)).astype(np.float32)
     auds = (np.asarray(openness, np.float32)[:, None, None, None] * proj
             + 0.05 * rng.normal(size=(f, 8, aud_dim, 16)).astype(np.float32))
-    blink = rng.uniform(0, 1, (f,)).astype(np.float32)
+    blink = rng.uniform(0, 1, (f,))
     au_exp = rng.uniform(0, 1, (f, 6)).astype(np.float32)
     bound = np.array([[min(opens), max(opens), o] for o in opens], np.float32)
+    au25, au25_pcts = FrameMeta.au25_stats(1.2 + np.asarray(openness))
+    meta = FrameMeta(blink=blink, mouth=opens, mouth_lb=min(opens),
+                     mouth_ub=max(opens), au25=au25, au25_pcts=au25_pcts,
+                     mouth_px=mouth_px)
 
     def t(x, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(
@@ -245,5 +256,5 @@ def orbit_frame_batch(size: int, n_frames: int = 16, seed: int = 0,
         **{k: t(v, np.int32 if k.endswith("rect") else None)
            for k, v in fields.items()},
         tanfovx=t(np.full(f, tan)), tanfovy=t(np.full(f, tan)),
-        auds=t(auds), blink=t(blink), au_exp=t(au_exp),
-        mouth_bound=t(bound))
+        auds=t(auds), blink=t(blink, np.float32), au_exp=t(au_exp),
+        mouth_bound=t(bound)), meta

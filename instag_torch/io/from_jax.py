@@ -5,12 +5,15 @@ nested dicts of arrays, and the ``GaussianParams`` fields. The port's
 modules keep flax's submodule names, so the mapping is a rename plus the
 inverse of the layout map in instag_tpu/io/reference_convert.py:
 
-  * Conv ``kernel`` [K, I, O] -> Conv1d ``weight`` [O, I, K];
+  * 2-D Conv ``kernel`` [K, K, I, O] -> Conv2d ``weight`` [O, I, K, K];
+  * 1-D Conv ``kernel`` [K, I, O] -> Conv1d ``weight`` [O, I, K];
   * Dense ``kernel`` [I, O]  -> Linear ``weight`` [O, I];
-  * ``bias`` and hash-grid ``embeddings`` are copied as they are.
+  * ``bias``, hash-grid ``embeddings`` and LPIPS ``lin_i`` are copied as
+    they are.
 
-The Gaussian state, its Adam state and the frame batch are carried field
-by field.
+The Gaussian state (from numpy fields, or from any object with the JAX
+state's attributes), its Adam state, the frame batch and the frame meta of
+the JAX frame records are carried field by field.
 """
 
 from __future__ import annotations
@@ -35,19 +38,27 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, np.asarray(value)
 
 
+_KERNEL_LAYOUT = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+
+
 def motion_state_dict(flax_params: Mapping) -> dict[str, torch.Tensor]:
-    """A flax motion-net tree ({'params': {...}} or its inner dict) as a
-    PyTorch state dict."""
+    """A flax tree ({'params': {...}} or its inner dict) as a PyTorch state
+    dict."""
     tree = flax_params.get("params", flax_params)
     sd = {}
     for name, value in _flatten(tree):
         head, _, leaf = name.rpartition(".")
         if leaf == "kernel":
-            value = (value.transpose(2, 1, 0) if value.ndim == 3
-                     else value.T)
+            value = value.transpose(_KERNEL_LAYOUT[value.ndim])
             name = f"{head}.weight"
         sd[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return sd
+
+
+def lpips_state_dict(flax_params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's LPIPS tree (``alex.conv_i`` kernels [K, K, I, O]
+    and biases, ``lin_i`` [C]) as the state dict of ``models.lpips.LPIPS``."""
+    return motion_state_dict(flax_params)
 
 
 def load_motion_net(net: nn.Module, flax_params: Mapping,
@@ -90,12 +101,42 @@ def gaussian_state(fields: Mapping[str, np.ndarray], alive: np.ndarray,
                                                      "denom") if k in stats})
 
 
+def state_from_jax(state, device: str | torch.device = "cuda"
+                   ) -> GaussianState:
+    """The port's GaussianState from an object with the JAX state's
+    attributes (``params`` fields, ``alive``, the densification statistics,
+    the SH degrees, ``spatial_lr_scale`` and ``dropped_children``), read
+    with ``numpy.asarray``."""
+    return gaussian_state(
+        {f: np.asarray(getattr(state.params, f)) for f in PARAM_FIELDS},
+        np.asarray(state.alive), int(np.asarray(state.active_sh_degree)),
+        state.max_sh_degree, device=device,
+        stats={k: np.asarray(getattr(state, k))
+               for k in ("max_radii2d", "xyz_grad_accum", "denom")},
+        spatial_lr_scale=state.spatial_lr_scale,
+        dropped_children=int(np.asarray(state.dropped_children)))
+
+
 def adam_state(mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray],
                step: int, device: str | torch.device = "cuda") -> AdamState:
     """An AdamState from the JAX ``AdamState``'s moments (``GaussianParams``
     fields as numpy) and step."""
     dev = resolve_device(device)
     return AdamState(mu=_params(mu, dev), nu=_params(nu, dev), step=int(step))
+
+
+def frame_meta(records):
+    """The port's FrameMeta from the JAX package's frame records (the
+    ``blink``, ``au25``, ``mouth_bound`` and ``mouth_mask`` of each), at
+    the records' own precision."""
+    from ..train.common import FrameMeta
+
+    return FrameMeta(
+        blink=[r.blink for r in records],
+        mouth=[r.mouth_bound[2] for r in records],
+        mouth_lb=records[0].mouth_bound[0], mouth_ub=records[0].mouth_bound[1],
+        au25=[r.au25[0] for r in records], au25_pcts=records[0].au25[1:],
+        mouth_px=[int(np.asarray(r.mouth_mask).sum()) for r in records])
 
 
 def frame_batch(arrays: Mapping[str, np.ndarray | None],

@@ -154,22 +154,31 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
                         face_umf: Callable[..., dict] | None,
                         aud: torch.Tensor, bg: torch.Tensor,
                         pmf: Callable[..., dict] | None = None,
-                        personalized: bool = False, align: bool = False,
+                        personalized: bool = False,
+                        align: bool | float = False,
                         k: int = 10, k_max: int = 50,
-                        face_motion_cache: dict | None = None
+                        face_motion_cache: dict | None = None,
+                        means2d_offset: torch.Tensor | None = None
                         ) -> MotionRender:
     """Mouth-branch render conditioned on the face UMF's motion range.
     ``pmf(x, aud)`` is the mouth PMF; ``face_motion_cache`` the face
     branch's motion prediction, reused at inference instead of running
-    ``face_umf`` with a zero expression."""
+    ``face_umf`` with a zero expression. ``align`` is a bool, or the
+    trainer's per-step 0/1 float: any float runs the PMF and adds
+    ``p_xyz align`` (so ``p_xyz`` exists, for the regulariser, while the
+    flag is 0). ``means2d_offset`` [N, 2] is added to the projected means
+    (see ``render_motion``)."""
     xyz0 = state.params.xyz
     xyz = xyz0
 
+    align_structural = not (isinstance(align, bool) and not align)
+    align_s = (1.0 if align else 0.0) if isinstance(align, bool) else align
+
     p_preds = None
-    if personalized or align:
+    if personalized or align_structural:
         p_preds = pmf(xyz0, aud)
-    if align:
-        xyz = xyz + p_preds["p_xyz"]
+    if align_structural:
+        xyz = xyz + p_preds["p_xyz"] * align_s
 
     if face_motion_cache is not None:
         face_preds = face_motion_cache
@@ -187,7 +196,7 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
     prep = prepare(cfg, means3d, state.get_scaling(), state.get_rotation(),
                    cam.view_transform, cam.full_proj_transform,
                    cam.camera_center, cam.tanfovx, cam.tanfovy,
-                   active=state.alive)
+                   means2d_offset=means2d_offset, active=state.alive)
     colors = sh_colors(means3d, cam.camera_center, _masked_features(state),
                        state.max_sh_degree)
     return MotionRender(

@@ -1,13 +1,16 @@
 """Shared training pieces (counterpart of instag_tpu/train/common.py): the
-frame batch on one device, the Gaussian learning rates, the lips rectangle
-mask and the photometric loss."""
+frame batch on one device, the host-side frame meta of the curricula, the
+Gaussian learning rates, the lips rectangle mask and the photometric
+loss."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..models import gaussians as G
 from ..render import Camera
 from ..utils.general import expon_lr
 from ..utils.losses import l1_loss, ssim
@@ -47,6 +50,71 @@ class FrameBatch:
     def gt_image(self, i: int) -> torch.Tensor:
         """[3,H,W] float in [0,1]."""
         return self.image[i].to(torch.float32).permute(2, 0, 1) / 255.0
+
+    def bg_image(self, i: int) -> torch.Tensor:
+        """The torso background [3,H,W], float in [0,1]."""
+        return self.bg[i].to(torch.float32).permute(2, 0, 1) / 255.0
+
+
+@dataclasses.dataclass
+class FrameMeta:
+    """The per-frame values the curricula compare with window edges, in
+    float64 on the host, as the JAX package reads them from its frame
+    records (``FrameBatch`` holds float32 copies, whose rounding can move a
+    value across an edge)."""
+    blink: np.ndarray        # [F] float64, AU45 / 2 clipped to [0, 1]
+    mouth: np.ndarray        # [F] float64, the mouth opening in pixels
+    mouth_lb: float          # the smallest and largest opening
+    mouth_ub: float
+    au25: np.ndarray         # [F] float64, AU25 clipped at its p95
+    au25_pcts: tuple[float, float, float, float]   # p25, p50, p75, max
+    mouth_px: np.ndarray     # [F] int64, mouth-mask pixels
+
+    def __post_init__(self):
+        for name in ("blink", "mouth", "au25"):
+            setattr(self, name, np.asarray(getattr(self, name), np.float64))
+        self.mouth_px = np.asarray(self.mouth_px, np.int64)
+        self.mouth_lb, self.mouth_ub = float(self.mouth_lb), float(
+            self.mouth_ub)
+        self.au25_pcts = tuple(float(x) for x in self.au25_pcts)
+
+    @staticmethod
+    def au25_stats(au25_raw) -> tuple[np.ndarray, tuple]:
+        """AU25 clipped at its 95th percentile, and the clipped values' p25,
+        p50, p75 and max."""
+        raw = np.asarray(au25_raw, np.float64)
+        au25 = np.clip(raw, 0, np.percentile(raw, 95))
+        return au25, (np.percentile(au25, 25), np.percentile(au25, 50),
+                      np.percentile(au25, 75), au25.max())
+
+
+def gaussian_backward(loss_fn, state: G.GaussianState, nets):
+    """Differentiate ``loss_fn(state, off) -> (loss, out)`` with respect to
+    the state's parameters, the offset ``off`` [C, 2] added to the
+    projected means (the densification statistics read its gradient) and
+    the parameters of ``nets``. Returns ``(loss, out, grads, off_grad)``:
+    ``grads`` a GaussianParams, and each net parameter's ``.grad``, zeros
+    where a parameter does not reach the loss, as the JAX package's
+    gradients are (an optimizer then steps every parameter, as optax does,
+    and its bias correction keeps count)."""
+    leaves = G.GaussianParams(**{
+        n: getattr(state.params, n).detach().requires_grad_(True)
+        for n in G.PARAM_FIELDS})
+    off = torch.zeros((state.capacity, 2), device=state.params.xyz.device,
+                      requires_grad=True)
+    for net in nets:
+        net.zero_grad(set_to_none=True)
+    loss, out = loss_fn(state.replace(params=leaves), off)
+    loss.backward()
+    for net in nets:
+        for p in net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    grads = G.GaussianParams(**{
+        n: (getattr(leaves, n).grad if getattr(leaves, n).grad is not None
+            else torch.zeros_like(getattr(leaves, n)))
+        for n in G.PARAM_FIELDS})
+    return loss.detach(), out, grads, off.grad
 
 
 def rgb_loss(image: torch.Tensor, gt: torch.Tensor,

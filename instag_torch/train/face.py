@@ -1,5 +1,5 @@
 """Few-shot face adaptation (counterpart of instag_tpu/train/face.py, serial
-path, without the LPIPS phase): the step and the ``train_face`` loop.
+path): the step and the ``train_face`` loop.
 
 One step renders the face branch with the PMF's align head and the UMF
 attention maps, and takes the loss of the JAX package's ``step_loss``:
@@ -9,7 +9,11 @@ attention maps, and takes the loss of the JAX package's ``step_loss``:
   * with ``has_priors`` (not in ``long`` mode): the sapiens normal prior
     0.01 and the depth prior 1e-2;
   * the motion regularisers 1e-5, the alpha regulariser 1e-3, and the
-    lips and hair attention regularisers 1e-4.
+    lips and hair attention regularisers 1e-4;
+  * while ``use_lpips``, with an LPIPS model: 0.01 (0.21 in ``long`` mode)
+    LPIPS over the patches of one drawn side of the image and the ground
+    truth, both painted green on the lips rectangle, and in ``long`` mode
+    0.01 LPIPS on a ``lips_crop`` square around the lips.
 Then it takes the Gaussian Adam step at ``gaussian_lrs``, the UMF (AdamW +
 LambdaLR) and PMF (Adam) steps, and adds the densification statistics from
 the gradient of ``means2d_offset`` and ``radii > 0``.
@@ -21,9 +25,8 @@ the frame curriculum, and at block ends the SH-degree bump, densification
 and, at log points, the adaptive capacity. Losses stay on the device and
 are read at log points only.
 
-The JAX package's LPIPS phase needs AlexNet weights that are not in the
-repository; the loop runs as the JAX loop does with ``lpips_enabled=False``
-(the phase flag still softens the mouth mask).
+The curriculum reads its window values from a float64 ``FrameMeta``, as
+the JAX loop reads them from its frame records.
 """
 
 from __future__ import annotations
@@ -40,13 +43,15 @@ from ..config import ModelConfig, OptimizationConfig
 from ..data.dataset import random_init_points, scene_extent
 from ..device import resolve_device
 from ..models import gaussians as G
+from ..models.lpips import load_lpips_params
 from ..models.motion import (MotionNetwork, PersonalizedMotionNetwork,
                              init_motion_params)
 from ..ops.rasterize import RasterizeConfig, selection_stats
 from ..render import render_motion
-from ..utils.losses import normalize_depth
+from ..utils.losses import normalize_depth, patchify
 from ..utils.sh import eval_sh
-from .common import FrameBatch, gaussian_lrs, rect_mask, rgb_loss
+from .common import (FrameBatch, FrameMeta, gaussian_backward, gaussian_lrs,
+                     rect_mask, rgb_loss)
 from .optim import pmf_optimizer, umf_optimizer
 
 
@@ -63,28 +68,33 @@ class Flags:
 
 
 class _FaceStep:
-    """``step(state, gopt, batch, i, it, flags) -> (state, gopt, loss)``:
-    one face adaptation step on frame ``i`` at iteration ``it``. It owns
-    the UMF and PMF optimizers; the Gaussian Adam state ``gopt`` is passed
-    in and returned, as in the JAX package."""
+    """``step(state, gopt, batch, i, it, flags, patch_idx) -> (state, gopt,
+    loss)``: one face adaptation step on frame ``i`` at iteration ``it``,
+    with LPIPS patches of side ``lpips_patches[patch_idx]``. It owns the UMF
+    and PMF optimizers; the Gaussian Adam state ``gopt`` is passed in and
+    returned, as in the JAX package."""
 
     def __init__(self, cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                  umf_net: nn.Module, pmf_net: nn.Module,
                  spatial_lr_scale: float, has_priors: bool,
                  device: str | torch.device, total_iters: int,
-                 warm_step: int, long: bool):
+                 warm_step: int, long: bool, lpips: nn.Module | None,
+                 lpips_patches: tuple[int, ...], lips_crop: int):
         self.device = resolve_device(device)
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.umf_net, self.pmf_net = umf_net, pmf_net
         self.spatial_lr_scale = spatial_lr_scale
         self.has_priors = has_priors and not long
+        self.long = long
+        self.lpips = lpips if lpips_patches else None
+        self.lpips_patches, self.lips_crop = lpips_patches, lips_crop
         self.umf_opt, self.umf_sched = umf_optimizer(
             umf_net, total_iters=total_iters, warm_step=warm_step, long=long)
         self.pmf_opt = pmf_optimizer(pmf_net)
         self.green = torch.tensor([0.0, 1.0, 0.0], device=self.device)
 
     def loss(self, state: G.GaussianState, off: torch.Tensor,
-             batch: FrameBatch, i: int, flags: Flags):
+             batch: FrameBatch, i: int, flags: Flags, patch_idx: int = 0):
         """The step's loss on frame ``i`` and its render."""
         h, w = self.cfg.image_height, self.cfg.image_width
         gt = batch.gt_image(i)
@@ -146,10 +156,41 @@ class _FaceStep:
         attn_hair = ((mr.attn[1] * hmf).sum() + (mr.attn[0] * hmf).sum()
                      ) / torch.clamp_min(hmf.sum(), 1.0)
         loss = loss + flags.use_regs * (1 - flags.hair_paint) * 1e-4 * attn_hair
+
+        if self.lpips is not None and flags.use_lpips > 0.5:
+            loss = loss + self._lpips_terms(img_w, gt_w, batch.lips_rect[i],
+                                            lips_m, patch_idx)
         return loss, out
 
+    def _lpips_terms(self, img: torch.Tensor, gt: torch.Tensor,
+                     rect: torch.Tensor, lips_m: torch.Tensor,
+                     patch_idx: int) -> torch.Tensor:
+        """The LPIPS phase's terms (inputs in [0, 1], LPIPS on [-1, 1])."""
+        term = img.new_zeros(())
+        if self.long:
+            h, w = self.cfg.image_height, self.cfg.image_width
+            c = self.lips_crop
+            ar = torch.arange(c, device=img.device)
+            rows = torch.clamp((rect[0] + rect[1]) // 2 - c // 2, 0,
+                               h - c) + ar
+            cols = torch.clamp((rect[2] + rect[3]) // 2 - c // 2, 0,
+                               w - c) + ar
+
+            def crop(x):
+                return x.index_select(1, rows).index_select(2, cols)[None]
+            term = term + 0.01 * self.lpips(crop(img) * 2 - 1,
+                                            crop(gt) * 2 - 1).mean()
+        green = self.green[:, None, None]
+        lips = lips_m[None] > 0
+        img = torch.where(lips, green, img)
+        gt = torch.where(lips, green, gt)
+        ps = self.lpips_patches[patch_idx]
+        d = self.lpips(patchify(img * 2 - 1, ps),
+                       patchify(gt * 2 - 1, ps)).mean()
+        return term + (0.21 if self.long else 0.01) * d
+
     def loss_and_grads(self, state: G.GaussianState, batch: FrameBatch,
-                       i: int, flags: Flags):
+                       i: int, flags: Flags, patch_idx: int = 0):
         """(loss, render, Gaussian gradients, means2d_offset gradient) of one
         step, with the UMF and PMF gradients left in their ``.grad`` (zeros
         where a parameter does not reach the loss, as in the JAX package,
@@ -157,29 +198,15 @@ class _FaceStep:
         if state.params.xyz.device.type != self.device.type:
             raise ValueError(f"state lives on {state.params.xyz.device}, "
                              f"not {self.device}")
-        leaves = G.GaussianParams(**{
-            n: getattr(state.params, n).detach().requires_grad_(True)
-            for n in G.PARAM_FIELDS})
-        off = torch.zeros((state.capacity, 2), device=self.device,
-                          requires_grad=True)
-        self.umf_opt.zero_grad(set_to_none=True)
-        self.pmf_opt.zero_grad(set_to_none=True)
-        loss, out = self.loss(state.replace(params=leaves), off, batch, i,
-                              flags)
-        loss.backward()
-        for net in (self.umf_net, self.pmf_net):
-            for p in net.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        grads = G.GaussianParams(**{
-            n: (getattr(leaves, n).grad if getattr(leaves, n).grad is not None
-                else torch.zeros_like(getattr(leaves, n)))
-            for n in G.PARAM_FIELDS})
-        return loss.detach(), out, grads, off.grad
+        return gaussian_backward(
+            lambda st, off: self.loss(st, off, batch, i, flags, patch_idx),
+            state, (self.umf_net, self.pmf_net))
 
     def __call__(self, state: G.GaussianState, gopt: G.AdamState,
-                 batch: FrameBatch, i: int, it: int, flags: Flags):
-        loss, out, grads, g_off = self.loss_and_grads(state, batch, i, flags)
+                 batch: FrameBatch, i: int, it: int, flags: Flags,
+                 patch_idx: int = 0):
+        loss, out, grads, g_off = self.loss_and_grads(state, batch, i, flags,
+                                                      patch_idx)
         lrs = gaussian_lrs(self.opt_cfg, it, self.spatial_lr_scale)
         params, gopt = G.adam_update(state.params, grads, gopt, lrs,
                                      state.alive)
@@ -198,13 +225,18 @@ def make_face_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                    spatial_lr_scale: float, has_priors: bool,
                    device: str | torch.device = "cuda",
                    total_iters: int = 10000, warm_step: int = 3000,
-                   long: bool = False) -> _FaceStep:
+                   long: bool = False, lpips: nn.Module | None = None,
+                   lpips_patches: tuple[int, ...] = (),
+                   lips_crop: int = 96) -> _FaceStep:
     """The face adaptation step on ``device`` (the nets, the state and the
     batch must live there). The UMF's learning-rate schedule runs over
     ``total_iters`` steps with ``warm_step`` and ``long`` (see
-    ``optim.umf_schedule``); ``long`` also drops the priors."""
+    ``optim.umf_schedule``); ``long`` also drops the priors. The LPIPS
+    phase runs when ``lpips`` (a frozen ``models.lpips.LPIPS``) and
+    ``lpips_patches`` (the patch sides) are given."""
     return _FaceStep(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
-                     has_priors, device, total_iters, warm_step, long)
+                     has_priors, device, total_iters, warm_step, long,
+                     lpips, lpips_patches, lips_crop)
 
 
 def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
@@ -212,19 +244,24 @@ def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                     spatial_lr_scale: float, has_priors: bool,
                     device: str | torch.device = "cuda",
                     total_iters: int = 10000, warm_step: int = 3000,
-                    long: bool = False):
-    """``block(state, gopt, batch, idxs, its, flags) -> (state, gopt,
-    losses)``: one step per frame index in ``idxs`` at the iterations
-    ``its``, all under ``flags``; ``losses`` [n] stays on the device."""
+                    long: bool = False, lpips: nn.Module | None = None,
+                    lpips_patches: tuple[int, ...] = (),
+                    lips_crop: int = 96):
+    """``block(state, gopt, batch, idxs, its, flags, patch_idxs=None) ->
+    (state, gopt, losses)``: one step per frame index in ``idxs`` at the
+    iterations ``its`` (with the LPIPS patch sides ``patch_idxs``, 0 when
+    absent), all under ``flags``; ``losses`` [n] stays on the device."""
     step = make_face_step(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
-                          has_priors, device, total_iters, warm_step, long)
+                          has_priors, device, total_iters, warm_step, long,
+                          lpips, lpips_patches, lips_crop)
 
     def block(state: G.GaussianState, gopt: G.AdamState, batch: FrameBatch,
-              idxs, its, flags: Flags):
+              idxs, its, flags: Flags, patch_idxs=None):
         losses = []
-        for i, it in zip(idxs, its):
+        patch_idxs = [0] * len(idxs) if patch_idxs is None else patch_idxs
+        for i, it, p in zip(idxs, its, patch_idxs):
             state, gopt, loss = step(state, gopt, batch, int(i), int(it),
-                                     flags)
+                                     flags, int(p))
             losses.append(loss)
         return state, gopt, torch.stack(losses)
 
@@ -233,8 +270,9 @@ def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
 
 def face_patch_sizes(h: int, w: int) -> tuple[int, ...]:
     """The LPIPS patch sides of the JAX loop (a lattice over [64, 96] px).
-    The loop has no LPIPS, but draws a patch index every step, as the JAX
-    loop does, so that both draw the same curriculum from one seed."""
+    The loop draws a patch index every step, with LPIPS or without it, as
+    the JAX loop does, so that both draw the same curriculum from one
+    seed."""
     return tuple(s for s in (64, 72, 80, 88, 96) if s <= min(h, w)) \
         or (min(h, w),)
 
@@ -270,7 +308,7 @@ def _prune_green_and_depth(state: G.GaussianState, opt: G.AdamState,
     return G.prune_mask(state, opt, mask)
 
 
-def sample_frame_curriculum(rng: np.random.Generator, records_meta: dict,
+def sample_frame_curriculum(rng: np.random.Generator, meta: FrameMeta,
                             stack: list, it: int, warm_step: int,
                             iterations: int, select_interval: int = 10
                             ) -> int:
@@ -279,28 +317,28 @@ def sample_frame_curriculum(rng: np.random.Generator, records_meta: dict,
     must fall in a window, tried up to 100 times before the nearest frame
     is taken: before ``warm_step`` a window of mouth openings that moves
     from the closed to the open bound over the run, after it a window of
-    blink values."""
+    blink values. The window test runs in float64 on ``meta``."""
     if not stack:
-        stack.extend(range(len(records_meta["mouth"])))
+        stack.extend(range(len(meta.mouth)))
     idx = stack.pop(int(rng.integers(len(stack))))
 
     mouth_step = 1.0 / max(iterations, 1)
     if it % select_interval != 0:
         return idx
     if it < warm_step:
-        lb, ub = records_meta["mouth_lb"], records_meta["mouth_ub"]
+        lb, ub = meta.mouth_lb, meta.mouth_ub
         lb = lb + (ub - lb) * 0.2
         window = (ub - lb) * 0.5
         lo = lb + mouth_step * it * (ub - lb)
         hi = lo + window
         lo = lo - window
-        vals = records_meta["mouth"]
+        vals = meta.mouth
     else:
         window = 0.4
         lo = mouth_step * it
         hi = lo + window
         lo = lo - window * 1.5
-        vals = records_meta["blink"]
+        vals = meta.blink
 
     for _ in range(100):
         if lo <= vals[idx] <= hi:
@@ -321,18 +359,23 @@ def _step_flags(step: int, warm_step: int, lpips_start: int, long: bool,
                  use_sapiens=float((not long) and step > warm_step + 2000),
                  use_depth=float(step % opt_cfg.opacity_reset_interval > 100),
                  hair_paint=float(hair_iter),
-                 # the phase also softens the mouth mask, so it runs
-                 # without LPIPS too
+                 # the phase also softens the mouth mask, with LPIPS or
+                 # without it
                  use_lpips=float(step > lpips_start))
 
 
 def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
-               batch: FrameBatch, *, umf_net: nn.Module | None = None,
+               batch: FrameBatch, meta: FrameMeta, *,
+               umf_net: nn.Module | None = None,
                pmf_net: nn.Module | None = None, long: bool = False,
                log_every: int = 500, eval_fn=None, warm_step: int = 3000,
-               seed: int = 0, device: str | torch.device = "cuda") -> dict:
+               seed: int = 0, lpips_enabled: bool = True,
+               device: str | torch.device = "cuda") -> dict:
     """Adapt a face cloud and the UMF to the frames of ``batch`` (on
-    ``device``) over ``opt_cfg.iterations`` steps.
+    ``device``) over ``opt_cfg.iterations`` steps. ``meta`` holds the
+    frames' curriculum values in float64. With ``lpips_enabled`` the LPIPS
+    phase runs from ``iterations - 2500`` (``models.lpips``: random
+    features unless converted weights are present).
 
     ``umf_net`` / ``pmf_net`` are the starting nets (trained in place and
     moved to ``device``); absent, they start from ``seed`` through
@@ -376,14 +419,14 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             PersonalizedMotionNetwork("face", model_cfg.audio_extractor),
             torch.Generator().manual_seed(2 * seed + 1))
     umf_net, pmf_net = umf_net.to(dev), pmf_net.to(dev)
+    patch_sizes = face_patch_sizes(h, w)
+    lpips = load_lpips_params(device=dev)[0] if lpips_enabled else None
     step = make_face_step(cfg, opt_cfg, umf_net, pmf_net, extent, has_priors,
                           dev, total_iters=iterations, warm_step=warm_step,
-                          long=long)
+                          long=long, lpips=lpips,
+                          lpips_patches=patch_sizes if lpips_enabled else (),
+                          lips_crop=min(96, h, w))
 
-    n_patches = len(face_patch_sizes(h, w))
-    mouth = batch.mouth_bound.cpu()
-    meta = {"mouth": mouth[:, 2].tolist(), "blink": batch.blink.tolist(),
-            "mouth_lb": float(mouth[0, 0]), "mouth_ub": float(mouth[0, 1])}
     rng = np.random.default_rng(seed)
     gen = torch.Generator(dev).manual_seed(seed)
     stack: list[int] = []
@@ -403,9 +446,9 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         for s in range(it, end + 1):
             i = sample_frame_curriculum(rng, meta, stack, s, warm_step,
                                         iterations)
-            rng.integers(n_patches)     # the JAX loop's LPIPS patch draw
+            p = int(rng.integers(len(patch_sizes)))
             state, gopt, loss = step(state, gopt, batch, i, s, _step_flags(
-                s, warm_step, lpips_start, long, opt_cfg))
+                s, warm_step, lpips_start, long, opt_cfg), p)
             block_losses.append(loss)
         losses.append(torch.stack(block_losses))
         it = end + 1

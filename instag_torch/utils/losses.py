@@ -1,5 +1,6 @@
 """Image losses (counterpart of instag_tpu/utils/losses.py): L1, SSIM with
-an 11x11 sigma-1.5 Gaussian window, PSNR and min-max depth normalisation.
+an 11x11 sigma-1.5 Gaussian window, PSNR, the LPIPS patch cut and min-max
+depth normalisation.
 """
 
 from __future__ import annotations
@@ -59,6 +60,17 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return torch.mean(ssim_map)
+
+
+def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[C, H, W] -> [N, C, patch, patch]: the non-overlapping patches in
+    row-major order; a remainder at the right or bottom edge is dropped."""
+    c, h, w = x.shape
+    nh, nw = h // patch_size, w // patch_size
+    x = x[:, : nh * patch_size, : nw * patch_size]
+    x = x.reshape(c, nh, patch_size, nw, patch_size)
+    return x.permute(1, 3, 0, 2, 4).reshape(nh * nw, c, patch_size,
+                                            patch_size)
 
 
 def normalize_depth(depth: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -18,7 +18,6 @@ noise, such as the rotations of isotropic splats, so the two clouds drift
 apart in their last bits step by step); the final alive mask equal.
 """
 
-import dataclasses
 import re
 
 import numpy as np
@@ -39,10 +38,11 @@ from instag_tpu.train import face as JF
 from instag_tpu.train.optim import umf_schedule as j_umf_schedule
 from instag_torch.bench_utils import synthetic_camera
 from instag_torch.config import ModelConfig, OptimizationConfig
-from instag_torch.io.from_jax import frame_batch, load_motion_net
+from instag_torch.io.from_jax import frame_batch, frame_meta, load_motion_net
 from instag_torch.models import motion as TM
 from instag_torch.ops.rasterize import RasterizeConfig, selection_stats
 from instag_torch.train import face as TF
+from instag_torch.train.common import FrameMeta
 from instag_torch.train.optim import umf_schedule
 
 LOSS_RTOL = 1e-3
@@ -60,17 +60,97 @@ def test_sample_frame_curriculum_matches_jax_draw_for_draw(seed):
     back to the nearest frame."""
     rng = np.random.default_rng(40 + seed)
     mouth = [float(x) for x in rng.integers(1, 12, 16)]
-    meta = {"mouth": mouth,
-            "blink": [float(np.float32(x)) for x in rng.uniform(0, 1, 16)],
+    meta = {"mouth": mouth, "blink": list(rng.uniform(0, 1, 16)),
             "mouth_lb": min(mouth), "mouth_ub": max(mouth)}
+    picks = _curriculum_picks(meta, 300, 150, seed=seed)
+    assert all(a == b for a, b in picks)
+    assert len({a for a, _ in picks}) == 16
+
+
+def _t_meta(meta: dict) -> FrameMeta:
+    n = len(meta["mouth"])
+    return FrameMeta(blink=meta["blink"], mouth=meta["mouth"],
+                     mouth_lb=meta["mouth_lb"], mouth_ub=meta["mouth_ub"],
+                     au25=np.zeros(n), au25_pcts=(0, 0, 0, 0),
+                     mouth_px=np.zeros(n, int))
+
+
+def _curriculum_picks(meta: dict, iterations: int, warm_step: int,
+                      its=None, seed=0):
+    """(JAX pick, port pick) at each step, from one seed; the JAX side reads
+    the dict of Python floats, the port a FrameMeta of the same values.
+    Both generators and stacks must end in the same state."""
     r_j, r_t = np.random.default_rng(seed), np.random.default_rng(seed)
     s_j, s_t = [], []
-    picks = [(JF.sample_frame_curriculum(r_j, meta, s_j, it, 150, 300),
-              TF.sample_frame_curriculum(r_t, meta, s_t, it, 150, 300))
-             for it in range(1, 301)]
-    assert all(a == b for a, b in picks)
+    t_meta = _t_meta(meta)
+    its = range(1, iterations + 1) if its is None else its
+    picks = [(JF.sample_frame_curriculum(r_j, meta, s_j, it, warm_step,
+                                         iterations),
+              TF.sample_frame_curriculum(r_t, t_meta, s_t, it, warm_step,
+                                         iterations))
+             for it in its]
     assert s_j == s_t and r_j.integers(1 << 30) == r_t.integers(1 << 30)
-    assert len({a for a, _ in picks}) == 16
+    return picks
+
+
+def _jax_draws(meta: dict, iterations: int, warm_step: int, its):
+    """JAX's picks at ``its`` and its generator's next draw."""
+    rng = np.random.default_rng(0)
+    stack = []
+    picks = [JF.sample_frame_curriculum(rng, meta, stack, it, warm_step,
+                                        iterations) for it in its]
+    return picks, int(rng.integers(1 << 30))
+
+
+def _edge_case(window_edges):
+    """The first step whose float64 window edge, put in a frame's value,
+    rounds out of the window in float32: (step, edge value)."""
+    for it in range(10, 3000, 10):
+        lo, hi = window_edges(it)
+        for v, outside in ((hi, lambda x: x > hi), (lo, lambda x: x < lo)):
+            if outside(float(np.float32(v))):
+                return it, v
+    raise AssertionError("no edge rounds out of its window")
+
+
+@pytest.mark.parametrize("field", ["blink", "mouth"])
+def test_curriculum_window_edges_read_in_float64(field):
+    """A frame whose value sits exactly on a window edge in float64, and
+    whose float32 rounding falls outside the window. Every other frame lies
+    far outside it, so the window test alone decides the pick: with the
+    float64 FrameMeta the port picks as JAX does from the records' floats,
+    draw for draw, while the float32 values make JAX itself draw otherwise
+    (the window misses, so it redraws 100 times before its nearest-frame
+    fallback: the fault the FrameMeta repairs)."""
+    iterations = 3000
+    if field == "blink":
+        warm_step = 1           # the blink window from the first step
+
+        def edges(it):
+            lo = (1.0 / iterations) * it
+            return lo - 0.4 * 1.5, lo + 0.4
+    else:
+        warm_step = iterations + 1    # the mouth window throughout
+        lb0, ub0 = 0.1, 0.7
+
+        def edges(it):
+            lb = lb0 + (ub0 - lb0) * 0.2
+            window = (ub0 - lb) * 0.5
+            lo = lb + (1.0 / iterations) * it * (ub0 - lb)
+            return lo - window, lo + window
+    it, v = _edge_case(edges)
+    far = 50.0                   # outside every window of the run
+    vals = [far] * 8
+    vals[3] = v
+    meta = {"mouth": [far] * 8, "blink": [far] * 8, "mouth_lb": 0.1,
+            "mouth_ub": 0.7}
+    meta[field] = vals
+    its = [it, it + 1, it + 2]
+    picks = _curriculum_picks(meta, iterations, warm_step, its=its)
+    assert all(a == b for a, b in picks) and picks[0] == (3, 3)
+    rounded = dict(meta, **{field: [float(np.float32(x)) for x in vals]})
+    assert _jax_draws(rounded, iterations, warm_step, its) != _jax_draws(
+        meta, iterations, warm_step, its)
 
 
 def test_selection_stats_match_jax():
@@ -122,12 +202,8 @@ def test_train_face_matches_jax(scene_dir, monkeypatch, capsys):
     iterations, warm_step, seed = 15, 7, 0
     oc = dict(iterations=iterations, densify_from_iter=2,
               densification_interval=5)
-    # the curriculum compares blink values with float64 window edges, and
-    # the port reads them from a float32 FrameBatch: hand both loops the
-    # float32 values
-    records = [dataclasses.replace(r, blink=float(np.float32(r.blink)))
-               for r in j_common.load_training_frames(
-                   JModelConfig(source_path=scene_dir))]
+    records = j_common.load_training_frames(
+        JModelConfig(source_path=scene_dir))
     monkeypatch.setattr(j_common, "load_training_frames",
                         lambda model_cfg: records)
     j_batch = j_common.build_frame_batch(records)
@@ -154,8 +230,9 @@ def test_train_face_matches_jax(scene_dir, monkeypatch, capsys):
     j_log = capsys.readouterr().out
     res = TF.train_face(
         ModelConfig(init_num=200, capacity=1024, max_per_tile=256),
-        OptimizationConfig(**oc), t_batch, umf_net=umf, pmf_net=pmf,
-        log_every=5, warm_step=warm_step, seed=seed, device="cpu")
+        OptimizationConfig(**oc), t_batch, frame_meta(records), umf_net=umf,
+        pmf_net=pmf, log_every=5, warm_step=warm_step, seed=seed,
+        lpips_enabled=False, device="cpu")
     t_log = capsys.readouterr().out
 
     np.testing.assert_allclose(res["losses"], ref["losses"], rtol=LOSS_RTOL)

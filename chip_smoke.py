@@ -62,15 +62,32 @@ Phases (any failure exits non-zero, and the result line is not printed):
      frame from the result through ``make_synthesis_fn``; ms per step
      before and after LPIPS starts, and one profiled fusion step without
      and one with LPIPS. Also one face step of phase 7's kind in the LPIPS
-     phase: a finite loss and a non-zero LPIPS term.
+     phase: a finite loss and a non-zero LPIPS term;
+ 12. clip synthesis: the committed JPEG fixture decoded by nvJPEG against
+     its libjpeg decode; a 512x512 scene (16 train, 32 val frames) written
+     by ``data.synthetic.generate_scene`` on the card and read back by
+     ``load_frames`` (PNGs, torso composites, masks and au.csv equal to
+     what the writer held, JPEG frames above 40 dB); phase 11's result
+     saved as a fuse bundle (reloaded bit-equal) with its cfg_args.json;
+     ``python -m instag_torch.cli.synthesize_fuse --fast`` as a subprocess,
+     its frames bit-equal to an in-process ``synthesize()`` and frame 0 to
+     ``make_synthesis_fn``'s, two composite launches a frame; select_every
+     4 and select_auto 4.0: within a level of the same mode through the
+     plain composite, freshly selected frames bit-equal to the exact clip,
+     above 40 dB against it; each mode's FPS with and without set-up, and
+     the times of the scene read and the bundle round trip.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import ctypes
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -105,6 +122,20 @@ LOOP_LOG_EVERY = 100
 DENSIFY_TOL = 1e-6       # card vs CPU densify: rtol and atol on parameters
 SOFTEN_TOL = 1e-6        # card vs CPU softening: rtol and atol on fields
 FUSE_STEPS = 200         # phase 11; LPIPS from FUSE_STEPS // 2 + 1
+# phase 12: clip synthesis
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLIP_TRAIN, CLIP_VAL = 16, 32
+FIXTURE_JPEG = "tests/torch_fixtures/frame_512.jpg"
+FIXTURE_NPZ = "tests/torch_fixtures/frame_512_libjpeg.npz"
+JPEG_FIXTURE_MAX = 3     # levels: nvJPEG's IDCT against libjpeg's islow
+JPEG_FIXTURE_MEAN = 0.01  # (measured 3 and 0.0028; see PERF.md)
+JPEG_PSNR_MIN = 40.0     # dB, nvJPEG q95 frames against the writer's arrays
+# dB, select_every 4 / select_auto 4.0 against exact over the clip: the
+# reuse modes lose detail where splats crossed tiles since the selection
+# (43.9 / 48.0 dB on phase 11's clouds, and the JAX reference the same on
+# the CPU on that bundle and scene; see PERF.md); the floor catches a broken
+# reuse path, the two checks beside it its correctness
+REUSE_PSNR_MIN = 40.0
 
 
 def log(*args):
@@ -774,10 +805,10 @@ def lpips_face_step(card: str, dev: torch.device):
 
 
 def fuse_loop(card: str, dev: torch.device, face: dict, mouth: dict,
-              batch) -> dict:
+              batch):
     """Phase 11: ``train_fuse`` at full width on the face and mouth
     bundles, its checks and its times. Returns each kernel's launches in
-    the loop."""
+    the loop and the loop's result (the fuse bundle of phase 12)."""
     from instag_torch.config import ModelConfig, OptimizationConfig
     from instag_torch.models import gaussians as G
     from instag_torch.models.lpips import load_lpips_params
@@ -895,7 +926,328 @@ def fuse_loop(card: str, dev: torch.device, face: dict, mouth: dict,
     log(f"  fused frame from the result: uint8 {tuple(img.shape)}, mean "
         f"{float(img.float().mean()):.3f}, mean |frame - GT| "
         f"{float((img.float() - gt).abs().mean()):.3f} (of 255)")
-    return launches
+    return launches, res
+
+
+def _tree_equal(a, b, path="") -> None:
+    """Raise unless two bundle trees hold the same keys, types, dtypes and
+    bits."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            raise AssertionError(f"bundle {path}: keys differ")
+        for k in a:
+            _tree_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, np.ndarray):
+        if not (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b)):
+            raise AssertionError(f"bundle {path}: array differs")
+    elif type(a) is not type(b) or a != b:
+        raise AssertionError(f"bundle {path}: {a!r} != {b!r}")
+
+
+def _psnr(a, b) -> float:
+    err = (np.asarray(a, np.float64) - np.asarray(b, np.float64)) / 255.0
+    return float(-10.0 * np.log10(np.mean(err ** 2) + 1e-12))
+
+
+def _luma(img) -> np.ndarray:
+    img = np.asarray(img, np.float64)
+    return 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
+
+
+def jpeg_fixture_check(card: str, dev: torch.device) -> dict:
+    """Phase 12, step 2: the committed fixture decoded by nvJPEG against
+    its committed libjpeg (PIL) decode."""
+    from instag_torch.data import image_io
+
+    with open(os.path.join(ROOT, FIXTURE_JPEG), "rb") as f:
+        blob = f.read()
+    ref = np.load(os.path.join(ROOT, FIXTURE_NPZ))["image"].astype(np.int32)
+    out = image_io.decode_jpegs([blob], dev)[0].cpu().numpy().astype(np.int32)
+    d = np.abs(out - ref)
+    dy = np.abs(_luma(out) - _luma(ref))
+    res = dict(max=int(d.max()), mean=float(d.mean()),
+               share_over_2=float((d > 2).mean()), luma_max=float(dy.max()),
+               luma_mean=float(dy.mean()))
+    log(f"nvJPEG vs libjpeg on {FIXTURE_JPEG} (512x512, 4:2:0, q95): RGB "
+        f"max {res['max']}, mean {res['mean']:.4f}, share of values off by "
+        f"more than 2 levels {res['share_over_2']:.4%}; luma (BT.601 of "
+        f"RGB) max {res['luma_max']:.3f}, mean {res['luma_mean']:.4f}")
+    if not (res["max"] <= JPEG_FIXTURE_MAX
+            and res["mean"] <= JPEG_FIXTURE_MEAN):
+        raise AssertionError(f"nvJPEG decode disagrees with libjpeg: {res}")
+    return res
+
+
+def _clip(cfg, model, batch, dev, select_every=1, select_auto=0.0):
+    """A clip through the chunk functions of ``synthesize`` with ``cfg``
+    (no warm-up, no timing): uint8 [F, H, W, 3] on the host."""
+    from instag_torch.synthesize import (DISPATCH_CHUNK,
+                                         make_synthesis_chunk_auto_fn,
+                                         make_synthesis_chunk_fn)
+
+    nf = batch.num_frames
+    chunks = np.minimum(np.arange(-(-nf // DISPATCH_CHUNK) * DISPATCH_CHUNK),
+                        nf - 1).reshape(-1, DISPATCH_CHUNK)
+    imgs = []
+    if select_auto > 0:
+        boot, step = make_synthesis_chunk_auto_fn(cfg, thresh_px=select_auto,
+                                                  device=dev)
+        out, carry = boot(model, batch, chunks[0])
+        imgs.append(out)
+        for ch in chunks[1:]:
+            out, carry = step(model, batch, ch, carry)
+            imgs.append(out)
+    else:
+        fn = make_synthesis_chunk_fn(cfg, select_every=select_every,
+                                     device=dev)
+        imgs = [fn(model, batch, ch) for ch in chunks]
+    return torch.cat(imgs)[:nf].cpu().numpy()
+
+
+def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
+    """Phase 12: a 512x512 scene written and read on the card, phase 11's
+    fusion result through a fuse bundle, and the clip through the
+    ``synthesize_fuse`` CLI and in process in all three selection modes.
+    Returns composite_fwd's launches in the exact in-process clip."""
+    import tempfile
+
+    from instag_torch.cli import synthesize_fuse as cli
+    from instag_torch.config import ModelConfig, save_cfg
+    from instag_torch.data import dataset as D
+    from instag_torch.data import image_io
+    from instag_torch.data import synthetic
+    from instag_torch.io.checkpoints import (flax_params, load_bundle,
+                                             save_bundle, state_to_dict)
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.synthesize import (DISPATCH_CHUNK, make_synthesis_fn,
+                                         synthesize)
+    from instag_torch.train.common import build_frame_batch
+
+    fixture = jpeg_fixture_check(card, dev)
+    tmp = tempfile.TemporaryDirectory()
+    scene = os.path.join(tmp.name, "scene")
+    model_dir = os.path.join(tmp.name, "model")
+
+    # the scene, its images recorded as the writer holds them
+    held = {}
+    write_png, write_jpeg = synthetic.write_png, synthetic.write_jpeg
+
+    def rec_png(path, img):
+        held[path] = np.array(img)
+        write_png(path, img)
+
+    def rec_jpeg(path, img, **kw):
+        held[path] = img.cpu().numpy()
+        write_jpeg(path, img, **kw)
+
+    synthetic.write_png, synthetic.write_jpeg = rec_png, rec_jpeg
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        synthetic.generate_scene(scene, n_frames=CLIP_TRAIN, size=SIZE,
+                                 n_val=CLIP_VAL, device=dev)
+        gen_s = time.perf_counter() - t
+    finally:
+        synthetic.write_png, synthetic.write_jpeg = write_png, write_jpeg
+    log(f"[{card}] scene: {SIZE}x{SIZE}, {CLIP_TRAIN} train + {CLIP_VAL} val "
+        f"frames written in {gen_s:.2f} s (JPEG by nvJPEG at q95, bc.jpg at "
+        f"q75)")
+
+    # every frame read back on the card
+    load_s, psnrs = {}, []
+    for split in ("train", "val"):
+        D._FRAMES_CACHE.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records = D.load_frames(scene, split, device=dev)
+        torch.cuda.synchronize()
+        load_s[split] = time.perf_counter() - t
+        bc = image_io.read_jpegs([os.path.join(scene, "bc.jpg")], dev)[0]
+        for r in records:
+            i = r.img_id
+            if r.image.device.type != dev.type or r.bg.device != r.image.device:
+                raise AssertionError("frames did not land on the card")
+            psnrs.append(_psnr(r.image.cpu().numpy(), held[os.path.join(
+                scene, "gt_imgs", f"{i}.jpg")]))
+            torso = held[os.path.join(scene, "torso_imgs", f"{i}.png")]
+            parsing = held[os.path.join(scene, "parsing", f"{i}.png")]
+            got = image_io.read_png(os.path.join(scene, "torso_imgs",
+                                                 f"{i}.png"), channels=4)
+            if not np.array_equal(got, torso):
+                raise AssertionError(f"torso PNG {i} read back differs")
+            tt = torch.from_numpy(torso).to(dev).to(torch.float32)
+            a = tt[..., 3:] / 255.0
+            bg = (tt[..., :3] * a + bc * (1 - a)).to(torch.uint8)
+            if not torch.equal(bg, r.bg):
+                raise AssertionError(f"torso composite {i} differs")
+            teeth = np.load(os.path.join(scene, "teeth_mask", f"{i}.npy"))
+            p = parsing.astype(np.float32)
+            face = ((p[..., 2] > 254) & (p[..., 0] == 0)
+                    & (p[..., 1] == 0)) ^ teeth
+            mouth = ((p[..., 0] == 100) & (p[..., 1] == 100)
+                     & (p[..., 2] == 100)) | teeth
+            if not (np.array_equal(face, r.face_mask)
+                    and np.array_equal(mouth, r.mouth_mask)):
+                raise AssertionError(f"parsing masks {i} differ")
+        # au.csv: the float64 columns hold the float32 values written
+        au = D.read_au_csv(os.path.join(scene, "au.csv"))
+        with open(os.path.join(scene, "au.csv"), newline="") as f:
+            rows = list(csv.reader(f))
+        if not all(np.array_equal(au[c].astype(np.float32).astype(str),
+                                  [r[j] for r in rows[1:]])
+                   for j, c in enumerate(rows[0])):
+            raise AssertionError("au.csv values do not round-trip")
+    log(f"[{card}] load_frames: train {load_s['train']:.3f} s, val "
+        f"{load_s['val']:.3f} s (memo cleared; nvJPEG decode, PNG in "
+        f"numpy); PNGs, torso composites and masks equal what the writer "
+        f"held; JPEG frames PSNR min {min(psnrs):.2f} dB, mean "
+        f"{np.mean(psnrs):.2f} dB over {len(psnrs)} frames "
+        f"(bound {JPEG_PSNR_MIN} dB)")
+    if not min(psnrs) >= JPEG_PSNR_MIN:
+        raise AssertionError(f"JPEG frames at {min(psnrs):.2f} dB")
+
+    # phase 11's result as a fuse bundle, with the keys train_fuse_con writes
+    bundle = dict(face_state=state_to_dict(fuse["face_state"]),
+                  mouth_state=state_to_dict(fuse["mouth_state"]),
+                  **{f"{k}_params": flax_params(fuse[f"{k}_net"])
+                     for k in ("face_umf", "mouth_umf", "face_pmf",
+                               "mouth_pmf")},
+                  iteration=FUSE_STEPS)
+    path = os.path.join(model_dir, "chkpnt_fuse_latest.pkl")
+    t = time.perf_counter()
+    save_bundle(path, bundle)
+    loaded = load_bundle(path)
+    round_s = time.perf_counter() - t
+    _tree_equal(bundle, loaded)
+    mc = ModelConfig(source_path=scene, model_path=model_dir,
+                     max_per_tile=256)
+    save_cfg(model_dir, mc)
+    log(f"[{card}] fuse bundle: {os.path.getsize(path) / 1e6:.2f} MB, save "
+        f"+ load {round_s:.3f} s, reloaded bit-equal")
+
+    # the CLI, as a user runs it: with OpenCV where it imports (an mp4),
+    # then with OpenCV hidden, which writes the lossless frame dump that
+    # is compared bit for bit
+    cmd = [sys.executable, "-m", "instag_torch.cli.synthesize_fuse", "-m",
+           model_dir, "-s", scene, "--fast"]
+    no_cv2 = os.path.join(tmp.name, "no_cv2")
+    os.makedirs(no_cv2)
+    with open(os.path.join(no_cv2, "cv2.py"), "w") as f:
+        f.write("raise ImportError('hidden: the frames go to .frames.npz')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [no_cv2, ROOT, os.environ.get("PYTHONPATH", "")]))
+    cli_s = {}
+    for label, kw in (("as found", {}), ("OpenCV hidden", {"env": env})):
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=900, **kw)
+        cli_s[label] = time.perf_counter() - t
+        for line in (proc.stdout + proc.stderr).strip().splitlines()[-4:]:
+            log(f"  cli ({label}) | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"synthesize_fuse ({label}) exited "
+                                 f"{proc.returncode}")
+    mp4 = os.path.join(model_dir, "out.mp4")
+    out_npz = mp4 + ".frames.npz"
+    if not os.path.exists(out_npz):
+        raise AssertionError("the CLI wrote no out.mp4.frames.npz")
+    cli_frames = np.load(out_npz)["video"]
+    mp4_note = "no OpenCV: the frame dump only"
+    if os.path.exists(mp4):
+        import cv2
+        cap = cv2.VideoCapture(mp4)
+        n_mp4 = 0
+        while cap.read()[0]:
+            n_mp4 += 1
+        cap.release()
+        if n_mp4 != CLIP_VAL:
+            raise AssertionError(f"out.mp4 holds {n_mp4} frames")
+        mp4_note = (f"out.mp4 through OpenCV {cv2.__version__}, "
+                    f"{os.path.getsize(mp4) / 1e6:.2f} MB, {n_mp4} frames")
+
+    # in process, the three modes
+    model = cli.load_fuse_model(path, device=dev)
+    fwd = kernel_fns()[0]
+    runs = {}
+    for mode, kw in (("exact", {}), ("select_every 4", {"select_every": 4}),
+                     ("select_auto 4.0", {"select_auto": 4.0})):
+        D._FRAMES_CACHE.clear()
+        fwd.launches = 0
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            video, fps = synthesize(mc, model, split="val", out_path=None,
+                                    device=dev, **kw)
+        wall = time.perf_counter() - t
+        runs[mode] = dict(kw=kw, video=video, fps=fps, wall=wall,
+                          launches=fwd.launches, log=out.getvalue().strip())
+    exact = runs["exact"]
+    nf = exact["video"].shape[0]
+    padded = -(-nf // DISPATCH_CHUNK) * DISPATCH_CHUNK
+    if exact["video"].shape != (CLIP_VAL, SIZE, SIZE, 3):
+        raise AssertionError(f"clip {exact['video'].shape}")
+    if not np.array_equal(cli_frames, exact["video"]):
+        diff = np.abs(cli_frames.astype(int) - exact["video"].astype(int))
+        raise AssertionError(f"CLI frames differ from in-process synthesis: "
+                             f"max {diff.max()}, share {(diff > 0).mean()}")
+    # frame 0 through phase 5's per-frame function
+    batch = build_frame_batch(D.load_frames(scene, "val", device=dev),
+                              device=dev)
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
+    frame0 = make_synthesis_fn(cfg, device=dev)(
+        model, batch.camera(0), batch.auds[0], batch.au_exp[0],
+        batch.bg_image(0)).cpu().numpy()
+    if not np.array_equal(frame0, exact["video"][0]):
+        raise AssertionError("frame 0 differs from make_synthesis_fn's")
+    for mode, extra in (("exact", DISPATCH_CHUNK),
+                        ("select_every 4", DISPATCH_CHUNK),
+                        ("select_auto 4.0", 2 * DISPATCH_CHUNK)):
+        want = 2 * (padded + extra)
+        if runs[mode]["launches"] != want:
+            raise AssertionError(f"{mode}: {runs[mode]['launches']} "
+                                 f"composite launches, expected {want}")
+    log(f"[{card}] CLI synthesize_fuse --fast: exit 0 twice, "
+        f"{cli_frames.shape[0]} frames in {cli_s['as found']:.2f} s and "
+        f"{cli_s['OpenCV hidden']:.2f} s wall (process start, bundle, scene "
+        f"and kernel load included); {mp4_note}; the dump bit-equal to "
+        f"in-process synthesize(); frame "
+        f"0 bit-equal to make_synthesis_fn's; composite_fwd {exact['launches']} "
+        f"launches for {padded} clip frames + a warm-up chunk of "
+        f"{DISPATCH_CHUNK} (2 a frame)")
+    plain_cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256,
+                                backend="plain")
+    for mode, r in runs.items():
+        psnr = _psnr(r["video"], exact["video"])
+        log(f"[{card}] clip {mode}: {r['fps']:.2f} FPS set-up excluded (the "
+            f"timed run after the warm-up chunk), {nf / r['wall']:.2f} FPS "
+            f"set-up included ({r['wall']:.2f} s wall: scene read, batch, "
+            f"warm-up); PSNR against exact "
+            f"{'-' if mode == 'exact' else f'{psnr:.2f} dB'}"
+            f"{'; ' + r['log'] if r['log'] else ''}")
+        if mode == "exact":
+            continue
+        # the reuse path through the kernels against the plain composite
+        plain = _clip(plain_cfg, model, batch, dev, **r["kw"])
+        diff = np.abs(plain.astype(int) - r["video"].astype(int))
+        fresh = (range(0, nf, r["kw"]["select_every"])
+                 if "select_every" in r["kw"] else [0])
+        per_frame = [round(_psnr(v, e), 2) for v, e in zip(r["video"],
+                                                            exact["video"])]
+        log(f"  {mode}: against the same mode through the plain composite "
+            f"max {diff.max()} level(s), {(diff > 0).mean():.2e} of values "
+            f"differ; per-frame PSNR against exact {per_frame}")
+        if not (diff.max() <= 1 and (diff > 0).mean() <= 1e-3):
+            raise AssertionError(f"{mode}: kernel and plain clips differ")
+        if not all(np.array_equal(r["video"][i], exact["video"][i])
+                   for i in fresh):
+            raise AssertionError(f"{mode}: a freshly selected frame "
+                                 f"differs from the exact clip")
+        if not psnr > REUSE_PSNR_MIN:
+            raise AssertionError(f"{mode}: {psnr:.2f} dB against exact")
+    tmp.cleanup()
+    return dict(launches=exact["launches"], fixture=fixture)
 
 
 def main() -> int:
@@ -935,7 +1287,7 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    built = kernels.build(SOURCES)
+    built = kernels.build(SOURCES + ["jpeg_codec"])
     log(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
         f"{ {k: round(v, 1) for k, v in built.items()} } (0 entries: cached)")
     for src in SOURCES:
@@ -1216,8 +1568,12 @@ def main() -> int:
 
     # ---- 11. the fusion loop at full width ---------------------------------
     lpips_face_step(card, dev)
-    fuse_launches = fuse_loop(card, dev, face_res, mouth_res, loop_batch)
+    fuse_launches, fuse_res = fuse_loop(card, dev, face_res, mouth_res,
+                                        loop_batch)
     later = {"mouth_loop": mouth_launches, "fuse_loop": fuse_launches}
+
+    # ---- 12. clip synthesis through the CLI --------------------------------
+    clip = clip_synthesis(card, dev, fuse_res)
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())
@@ -1227,13 +1583,15 @@ def main() -> int:
         "replaces": "instag_tpu/ops/pallas_composite.py:190",
         "launches": (launches + train_launches["composite_fwd"]
                      + loop_launches["composite_fwd"]
-                     + sum(v["composite_fwd"] for v in later.values())),
+                     + sum(v["composite_fwd"] for v in later.values())
+                     + clip["launches"]),
         "launches_by_path": {"serving": launches,
                              "training": train_launches["composite_fwd"],
                              "adaptation_loop":
                                  loop_launches["composite_fwd"],
                              **{k: v["composite_fwd"]
-                                for k, v in later.items()}},
+                                for k, v in later.items()},
+                             "clip_synthesis": clip["launches"]},
         "max_abs_err": max(err_main, err34, err_wide,
                            *(c["fwd_err"] for c in train_cases.values())),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,

@@ -126,17 +126,10 @@ def adam_state(mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray],
 
 
 def frame_meta(records):
-    """The port's FrameMeta from the JAX package's frame records (the
-    ``blink``, ``au25``, ``mouth_bound`` and ``mouth_mask`` of each), at
-    the records' own precision."""
+    """The port's FrameMeta from the JAX package's frame records."""
     from ..train.common import FrameMeta
 
-    return FrameMeta(
-        blink=[r.blink for r in records],
-        mouth=[r.mouth_bound[2] for r in records],
-        mouth_lb=records[0].mouth_bound[0], mouth_ub=records[0].mouth_bound[1],
-        au25=[r.au25[0] for r in records], au25_pcts=records[0].au25[1:],
-        mouth_px=[int(np.asarray(r.mouth_mask).sum()) for r in records])
+    return FrameMeta.from_records(records)
 
 
 def frame_batch(arrays: Mapping[str, np.ndarray | None],

@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``instag_torch/build/lib<name>-<hash>.so`` at first use
-(the hash is of the source and of every header in ``csrc/``, so an edited
-source or header is rebuilt), then loaded with ``ctypes``. Each source
-exports ``<name>_launch``, which returns a ``cudaError_t``, and
-``<name>_error_string``. Nothing here runs at import time: the CPU tests
+(the hash is of the source, of every header in ``csrc/`` and of the
+source's own link flags, so an edited source, header or flag is rebuilt),
+then loaded with ``ctypes``. Each kernel source exports ``<name>_launch``,
+which returns a ``cudaError_t``, and ``<name>_error_string``;
+``jpeg_codec.cu`` binds the toolkit's nvJPEG library for the frame reader
+and writer (``data/image_io.py``), links it and finds it again through an
+rpath to the toolkit's ``lib64``. Nothing here runs at import time: the CPU tests
 import every module, and a host without a card need not have ``nvcc``.
 """
 
@@ -23,6 +26,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# per-source link flags, part of the source's hash
+LINK_FLAGS = {"jpeg_codec": ["-lnvjpeg"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -44,6 +50,8 @@ def library_path(name: str) -> str:
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read())
+    if name in LINK_FLAGS:
+        h.update(b"\0link\0" + " ".join(LINK_FLAGS[name]).encode())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -58,8 +66,15 @@ def build(names: list[str]) -> dict[str, float]:
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        nvcc = _nvcc()
+        link = []
+        if name in LINK_FLAGS:
+            lib64 = os.path.join(os.path.dirname(os.path.dirname(nvcc)),
+                                 "lib64")
+            link = [*LINK_FLAGS[name], "-Xlinker", "-rpath", "-Xlinker",
+                    lib64]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu"), *link]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path, time.perf_counter())

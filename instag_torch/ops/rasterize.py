@@ -250,6 +250,11 @@ def _tile_select(cfg: RasterizeConfig, proj: Projected):
     return ids, valid
 
 
+# public: the guarded refresh of select_auto selects fresh tile lists from a
+# Prepared's projection
+tile_select = _tile_select
+
+
 @torch.no_grad()
 def selection_stats(cfg: RasterizeConfig, means3d, scales, rotations,
                     viewmatrix, projmatrix, campos, tanfovx, tanfovy,
@@ -282,7 +287,9 @@ def prepare(cfg: RasterizeConfig, means3d, scales, rotations, viewmatrix,
             active=None, selection=None) -> Prepared:
     """Projection + tile selection only. ``selection``: ``(ids, valid)`` from
     a previous frame to reuse instead of selecting (composite it with
-    ``mask_invisible=True``)."""
+    ``mask_invisible=True``), or a callable ``(proj, px, py) -> (ids,
+    valid)`` that sees this frame's projection and picks the tile lists
+    itself (the guarded refresh of ``synthesize``'s ``select_auto``)."""
     proj = project_gaussians(cfg, means3d, scales, rotations, viewmatrix,
                              projmatrix, campos, tanfovx, tanfovy, active)
     px, py = proj.px, proj.py
@@ -291,6 +298,8 @@ def prepare(cfg: RasterizeConfig, means3d, scales, rotations, viewmatrix,
         py = py + means2d_offset[:, 1]
     if selection is None:
         ids, valid = _tile_select(cfg, proj)
+    elif callable(selection):
+        ids, valid = selection(proj, px, py)
     else:
         ids, valid = selection
     return Prepared(proj, px, py, ids, valid)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as Fn
 
 from .models.gaussians import GaussianState
-from .ops.rasterize import (RasterizeConfig, RasterizeOutput,
+from .ops.rasterize import (Prepared, RasterizeConfig, RasterizeOutput,
                             composite_prepared, prepare, sh_colors)
 from .utils.general import safe_normalize
 
@@ -61,6 +61,10 @@ class MotionRender(NamedTuple):
     p_motion: dict[str, Any] | None
     attn: torch.Tensor | None = None      # [3, H, W] UMF attention map
     p_attn: torch.Tensor | None = None    # [3, H, W] PMF attention map
+    # this frame's tile lists (ids, valid), to reuse in a later frame
+    selection: tuple = ()
+    # the projection and selection the composite used
+    prep: Prepared | None = None
 
 
 def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
@@ -69,7 +73,8 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
                   pmf: Callable[..., dict] | None = None,
                   personalized: bool = False, align: bool | float = False,
                   return_attn: bool = False,
-                  means2d_offset: torch.Tensor | None = None) -> MotionRender:
+                  means2d_offset: torch.Tensor | None = None,
+                  selection=None) -> MotionRender:
     """Face-branch motion render. ``umf(x, aud, exp)`` and
     ``pmf(x, aud, exp)`` are the motion networks.
 
@@ -81,6 +86,9 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
     aux channels of the same composite, with stop-gradient weights.
     ``means2d_offset`` [N, 2] is added to the projected means; its gradient
     is the pixel-space position gradient of the densification statistics.
+    ``selection``: a previous frame's ``MotionRender.selection`` to reuse,
+    or a selection callable (``ops.rasterize.prepare``); either composites
+    with the culled splats' opacity zeroed.
     """
     xyz0 = state.params.xyz
     xyz = xyz0
@@ -111,22 +119,26 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
     prep = prepare(cfg, means3d, scales, rotations, cam.view_transform,
                    cam.full_proj_transform, cam.camera_center, cam.tanfovx,
                    cam.tanfovy, means2d_offset=means2d_offset,
-                   active=state.alive)
+                   active=state.alive, selection=selection)
+    reused = selection is not None
     colors = sh_colors(means3d, cam.camera_center, _masked_features(state),
                        state.max_sh_degree)
+    sel = (prep.ids, prep.valid)
     if not return_attn:
-        return MotionRender(composite_prepared(cfg, prep, opacity, colors, bg),
-                            preds, p_preds)
+        return MotionRender(composite_prepared(cfg, prep, opacity, colors, bg,
+                                               mask_invisible=reused),
+                            preds, p_preds, selection=sel, prep=prep)
     aux = [preds["ambient_aud"], preds["ambient_eye"]]
     if personalized:
         aux += [p_preds["ambient_aud"], p_preds["ambient_eye"]]
     out, aux_img = composite_prepared(cfg, prep, opacity, colors, bg,
-                                      aux_colors=torch.cat(aux, dim=-1))
+                                      aux_colors=torch.cat(aux, dim=-1),
+                                      mask_invisible=reused)
     zero = torch.zeros_like(aux_img[0])
     attn = torch.stack([aux_img[0], aux_img[1], zero])
     p_attn = (torch.stack([aux_img[2], aux_img[3], zero]) if personalized
               else None)
-    return MotionRender(out, preds, p_preds, attn, p_attn)
+    return MotionRender(out, preds, p_preds, attn, p_attn, sel, prep)
 
 
 def _move_feature(face_preds: dict, face_state: GaussianState, k: int,
@@ -158,8 +170,8 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
                         align: bool | float = False,
                         k: int = 10, k_max: int = 50,
                         face_motion_cache: dict | None = None,
-                        means2d_offset: torch.Tensor | None = None
-                        ) -> MotionRender:
+                        means2d_offset: torch.Tensor | None = None,
+                        selection=None) -> MotionRender:
     """Mouth-branch render conditioned on the face UMF's motion range.
     ``pmf(x, aud)`` is the mouth PMF; ``face_motion_cache`` the face
     branch's motion prediction, reused at inference instead of running
@@ -167,7 +179,8 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
     trainer's per-step 0/1 float: any float runs the PMF and adds
     ``p_xyz align`` (so ``p_xyz`` exists, for the regulariser, while the
     flag is 0). ``means2d_offset`` [N, 2] is added to the projected means
-    (see ``render_motion``)."""
+    and ``selection`` reuses or picks the tile lists (see
+    ``render_motion``)."""
     xyz0 = state.params.xyz
     xyz = xyz0
 
@@ -196,12 +209,14 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
     prep = prepare(cfg, means3d, state.get_scaling(), state.get_rotation(),
                    cam.view_transform, cam.full_proj_transform,
                    cam.camera_center, cam.tanfovx, cam.tanfovy,
-                   means2d_offset=means2d_offset, active=state.alive)
+                   means2d_offset=means2d_offset, active=state.alive,
+                   selection=selection)
     colors = sh_colors(means3d, cam.camera_center, _masked_features(state),
                        state.max_sh_degree)
     return MotionRender(
-        composite_prepared(cfg, prep, state.get_opacity(), colors, bg),
-        preds, p_preds)
+        composite_prepared(cfg, prep, state.get_opacity(), colors, bg,
+                           mask_invisible=selection is not None),
+        preds, p_preds, selection=(prep.ids, prep.valid), prep=prep)
 
 
 def composite_fuse(face_img, face_alpha, mouth_img, mouth_alpha, bg_color,

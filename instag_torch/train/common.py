@@ -1,7 +1,7 @@
 """Shared training pieces (counterpart of instag_tpu/train/common.py): the
-frame batch on one device, the host-side frame meta of the curricula, the
-Gaussian learning rates, the lips rectangle mask and the photometric
-loss."""
+frame batch on one device, built from the dataset reader's records, the
+host-side frame meta of the curricula, the Gaussian learning rates, the
+lips rectangle mask and the photometric loss."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import gaussians as G
 from ..render import Camera
 from ..utils.general import expon_lr
@@ -78,6 +79,19 @@ class FrameMeta:
             self.mouth_ub)
         self.au25_pcts = tuple(float(x) for x in self.au25_pcts)
 
+    @classmethod
+    def from_records(cls, records) -> "FrameMeta":
+        """The meta of frame records (the port's or the JAX package's: the
+        ``blink``, ``au25``, ``mouth_bound`` and ``mouth_mask`` of each), at
+        the records' own precision."""
+        return cls(
+            blink=[r.blink for r in records],
+            mouth=[r.mouth_bound[2] for r in records],
+            mouth_lb=records[0].mouth_bound[0],
+            mouth_ub=records[0].mouth_bound[1],
+            au25=[r.au25[0] for r in records], au25_pcts=records[0].au25[1:],
+            mouth_px=[int(np.asarray(r.mouth_mask).sum()) for r in records])
+
     @staticmethod
     def au25_stats(au25_raw) -> tuple[np.ndarray, tuple]:
         """AU25 clipped at its 95th percentile, and the clipped values' p25,
@@ -86,6 +100,54 @@ class FrameMeta:
         au25 = np.clip(raw, 0, np.percentile(raw, 95))
         return au25, (np.percentile(au25, 25), np.percentile(au25, 50),
                       np.percentile(au25, 75), au25.max())
+
+
+def load_training_frames(model_cfg, device: str | torch.device = "cuda"):
+    """The train split's records, and the val split's after them when
+    ``all_for_train``."""
+    from ..data.dataset import load_frames
+    records = load_frames(model_cfg.source_path, "train",
+                          model_cfg.audio_extractor, model_cfg.N_views,
+                          device=device)
+    if model_cfg.all_for_train:
+        records = records + load_frames(model_cfg.source_path, "val",
+                                        model_cfg.audio_extractor, -1,
+                                        device=device)
+    return records
+
+
+# FrameBatch field -> numpy dtype of its stack (None: the record's own); the
+# images are uint8 tensors already on the reader's device
+_RECORD_DTYPES = {
+    "view_transform": None, "full_proj_transform": None,
+    "camera_center": None, "tanfovx": np.float32, "tanfovy": np.float32,
+    "face_mask": bool, "hair_mask": bool, "mouth_mask": bool,
+    "auds": np.float32, "blink": np.float32, "au_exp": np.float32,
+    "lips_rect": np.int32, "lhalf_rect": np.int32, "mouth_bound": np.float32,
+}
+
+
+def build_frame_batch(records, with_priors: bool = False,
+                      device: str | torch.device = "cuda") -> FrameBatch:
+    """The records stacked into a FrameBatch on ``device``, field by field
+    as the JAX package stacks them; the priors only with ``with_priors``
+    and when the records carry them."""
+    dev = resolve_device(device)
+
+    def stack(name, dtype=None):
+        arr = np.stack([getattr(r, name) for r in records])
+        return torch.from_numpy(arr if dtype is None
+                                else arr.astype(dtype)).to(dev)
+
+    fields = {name: stack(name, dtype)
+              for name, dtype in _RECORD_DTYPES.items()}
+    for name in ("image", "bg"):
+        fields[name] = torch.stack([torch.as_tensor(getattr(r, name))
+                                    for r in records]).to(dev, torch.uint8)
+    if with_priors and records[0].normal is not None:
+        fields["normal"] = stack("normal", np.float32)
+        fields["depth"] = stack("depth", np.float32)
+    return FrameBatch(**fields)
 
 
 def gaussian_backward(loss_fn, state: G.GaussianState, nets):

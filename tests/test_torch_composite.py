@@ -18,6 +18,7 @@ from instag_tpu.ops.pallas_composite import (CompositeStatic,
                                              composite_tiles_fused)
 from instag_torch.ops.composite import CompositeFunction, composite_fwd
 from tests.test_torch_kernels import T, TILES_X, make_tiles
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("K", [64, 256])

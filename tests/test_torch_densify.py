@@ -25,6 +25,7 @@ from instag_torch.io.from_jax import adam_state, gaussian_state
 from instag_torch.models import gaussians as G
 from instag_torch.ops.knn import mean_knn_dist2
 from instag_torch.train import face as TF
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 FIELDS = G.PARAM_FIELDS
 STATS = ("max_radii2d", "xyz_grad_accum", "denom")

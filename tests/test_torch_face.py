@@ -32,6 +32,7 @@ from instag_torch.models import motion as TM
 from instag_torch.ops.rasterize import RasterizeConfig
 from instag_torch.train.face import Flags, make_face_block
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 SIZE, K, N_LIVE, CAP = 64, 64, 300, 512
 FIELDS = G.PARAM_FIELDS

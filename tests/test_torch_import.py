@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points never fall back from CUDA to the CPU."""
+"""The PyTorch port stands alone: it imports neither JAX (nor flax, optax
+or the msgpack package) nor the JAX package, and its entry points never
+fall back from CUDA to the CPU."""
 
 import ast
 import os
@@ -9,10 +10,11 @@ import sys
 
 import pytest
 import torch
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "instag_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "instag_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "instag_tpu")
 
 
 def _modules():
@@ -51,10 +53,15 @@ def test_source_imports_nothing_of_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-def test_cuda_device_without_gpu_raises(monkeypatch):
+def test_cuda_device_without_gpu_raises(monkeypatch, tmp_path):
     from instag_torch import bench_utils
+    from instag_torch.cli import synthesize_fuse
+    from instag_torch.config import ModelConfig
+    from instag_torch.data.dataset import load_frames
+    from instag_torch.data.synthetic import generate_scene
+    from instag_torch.io.checkpoints import load_gaussian_ply, state_from_dict
     from instag_torch.ops.rasterize import RasterizeConfig
-    from instag_torch.synthesize import make_synthesis_fn
+    from instag_torch.synthesize import make_synthesis_fn, synthesize
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -63,6 +70,16 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
         bench_utils.synthetic_camera(32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_synthesis_fn(RasterizeConfig(32, 32))
+    for call in (lambda: load_frames(str(tmp_path)),
+                 lambda: generate_scene(str(tmp_path / "scene")),
+                 lambda: state_from_dict({}),
+                 lambda: load_gaussian_ply(str(tmp_path / "a.ply"), 8),
+                 lambda: synthesize(ModelConfig(), None),
+                 lambda: synthesize_fuse.load_fuse_model(str(tmp_path)),
+                 lambda: synthesize_fuse.main(["-m", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "scene").exists()
 
 
 def test_approx_topk_is_refused():

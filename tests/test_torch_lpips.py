@@ -40,6 +40,7 @@ from instag_torch.utils.losses import patchify
 from tests.test_torch_face import (B1, FIELDS, K, SIZE, _adam_mu, _close,
                                    _scene)
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -19,6 +19,7 @@ from instag_torch.io.from_jax import load_motion_net
 from instag_torch.models import motion as TM
 from instag_torch.models import nets as TN
 from instag_torch.ops import hashgrid as TH
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def flax_tree(net: torch.nn.Module, rng, emb_scale=0.3):

@@ -10,6 +10,7 @@ import torch
 from instag_tpu.ops import rasterize as J
 from instag_torch.ops import rasterize as R
 from tests.test_rasterize import make_camera, make_scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 H = W = 64
 K = 64

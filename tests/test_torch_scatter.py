@@ -12,6 +12,7 @@ import torch
 from instag_tpu.ops.pallas_scatter import scatter_add_tiles as j_scatter
 from instag_torch.ops.rasterize import TileGather
 from instag_torch.ops.scatter import scatter_add_tiles
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _case(F, T, K, n, seed, cnt=None):

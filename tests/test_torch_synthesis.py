@@ -24,6 +24,7 @@ from instag_torch.render import Camera, dilate_alpha
 from instag_torch.synthesize import (SynthesisModel, make_synthesis_fn,
                                      synthesize_frame)
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 SIZE = 64
 FIELDS = ("xyz", "features_dc", "features_rest", "identity", "scaling",

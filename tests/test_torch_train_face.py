@@ -44,6 +44,7 @@ from instag_torch.ops.rasterize import RasterizeConfig, selection_stats
 from instag_torch.train import face as TF
 from instag_torch.train.common import FrameMeta
 from instag_torch.train.optim import umf_schedule
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-3
 

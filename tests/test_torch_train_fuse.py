@@ -34,6 +34,7 @@ from instag_torch.io.from_jax import frame_batch, load_motion_net, state_from_ja
 from instag_torch.models import motion as TM
 from instag_torch.train import fuse as TFu
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-3
 FROZEN = {"face": ("xyz", "scaling", "rotation"),

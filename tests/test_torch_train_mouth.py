@@ -51,6 +51,7 @@ from instag_torch.train import mouth as TMo
 from instag_torch.train.common import FrameMeta
 from tests.test_torch_face import B1, FIELDS, K, SIZE, _adam_mu, _close, _scene
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-3
 
@@ -112,8 +113,23 @@ def _nets_and_params(seed):
                   for i, n in enumerate(nets)]
 
 
+@pytest.fixture(scope="module")
+def jax_mouth_block():
+    """The JAX mouth block and its optimizers, built once: ``align`` is
+    traced, so both cases of the step test run one compiled program."""
+    _, params = _nets_and_params(60)
+    cfg = JConfig(SIZE, SIZE, max_per_tile=K, tile_chunk=8,
+                  approx_topk=False, backend="xla")
+    umf_tx, _ = j_umf_opt(params[0])
+    pmf_tx, _ = j_pmf_opt(params[1])
+    block = JMo.make_mouth_block(cfg, JOptConfig(), JM.MouthMotionNetwork(),
+                                 JM.PersonalizedMotionNetwork("mouth"),
+                                 JM.MotionNetwork(), 1.0, umf_tx, pmf_tx)
+    return block, umf_tx, pmf_tx
+
+
 @pytest.mark.parametrize("align", [0.0, 1.0])
-def test_mouth_step_matches_jax(align):
+def test_mouth_step_matches_jax(jax_mouth_block, align):
     """One mouth step with the regularisers on, the PMF's align off (its
     ``p_xyz`` still feeds the regulariser) or on, at k = 20."""
     state, batch = _scene(has_priors=False)
@@ -122,13 +138,9 @@ def test_mouth_step_matches_jax(align):
     t_state = state_from_jax(state, device="cpu")
     t_face = state_from_jax(face, device="cpu")
 
-    cfg = JConfig(SIZE, SIZE, max_per_tile=K, tile_chunk=8,
-                  approx_topk=False, backend="xla")
-    umf_tx, umf_opt = j_umf_opt(params[0])
-    pmf_tx, pmf_opt = j_pmf_opt(params[1])
-    block = JMo.make_mouth_block(cfg, JOptConfig(), JM.MouthMotionNetwork(),
-                                 JM.PersonalizedMotionNetwork("mouth"),
-                                 JM.MotionNetwork(), 1.0, umf_tx, pmf_tx)
+    block, umf_tx, pmf_tx = jax_mouth_block
+    umf_opt = jax.jit(umf_tx.init)(params[0])
+    pmf_opt = jax.jit(pmf_tx.init)(params[1])
     flags = JMo.MouthFlags(align=jnp.full((1,), align),
                            use_regs=jnp.ones((1,)), valid=jnp.ones((1,)))
     (j_state1, j_gopt, _, j_umf_state, _, j_pmf_state,

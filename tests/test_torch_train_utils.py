@@ -22,6 +22,7 @@ from instag_torch.train import optim as TO
 from instag_torch.utils import general as TGen
 from instag_torch.utils import losses as TL
 from tests.test_torch_motion import flax_tree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

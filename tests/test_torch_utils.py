@@ -14,6 +14,7 @@ from instag_torch.io.from_jax import gaussian_state
 from instag_torch.utils import general as TGen
 from instag_torch.utils import graphics as TGr
 from instag_torch.utils import sh as TSH
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _dirs(n=64, seed=0):

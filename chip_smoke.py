@@ -75,7 +75,24 @@ Phases (any failure exits non-zero, and the result line is not printed):
      4 and select_auto 4.0: within a level of the same mode through the
      plain composite, freshly selected frames bit-equal to the exact clip,
      above 40 dB against it; each mode's FPS with and without set-up, and
-     the times of the scene read and the bundle round trip.
+     the times of the scene read and the bundle round trip;
+ 13. the adaptation CLIs at full width (``ModelConfig()``, K=256, deepspeech
+     nets) on phase 12's scene: ``python -m instag_torch.cli.adapt`` as a
+     subprocess (300 face and 300 mouth steps, 100 fusion steps, the val
+     clip with its variants and PLYs, ``metrics.json`` with finite PSNR
+     and LPIPS and its ``lpips_real`` flag); in process, ``cli.train_face``
+     for 150 steps, then ``--start_checkpoint`` to 300 in another run
+     directory (its first log point past 150; the bundle's state, Adam
+     state, nets and optimizer states restored and written again to the
+     same bytes; the UMF's scheduler at count 150 and its rates at the
+     schedule's value there; its first 20 losses within rtol 1e-3 of an
+     in-process ``train_face(resume_bundle=...)``, which launches each
+     kernel once a step), ``cli.train_mouth``, ``cli.train_fuse_con`` and
+     ``cli.synthesize_fuse --fast`` on that run; every bundle's key paths
+     equal to the JAX CLIs' (``tests/torch_fixtures/bundle_keys.json``);
+     and 100 face steps with the frames streamed from pinned host memory
+     against the same steps from the frames on the card. Each CLI's wall
+     time and ms per step, and the kernels' launches on the CLI path.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -136,6 +153,14 @@ JPEG_PSNR_MIN = 40.0     # dB, nvJPEG q95 frames against the writer's arrays
 # the CPU on that bundle and scene; see PERF.md); the floor catches a broken
 # reuse path, the two checks beside it its correctness
 REUSE_PSNR_MIN = 40.0
+# phase 13: the adaptation CLIs
+BUNDLE_KEYS = "tests/torch_fixtures/bundle_keys.json"
+ADAPT_ITERS, ADAPT_FUSE_ITERS = 300, 100
+RESUME_AT, RESUME_TO = 150, 300      # train_face, then resumed to RESUME_TO
+CLI_MOUTH_ITERS, CLI_FUSE_ITERS = 150, 100
+RESUME_COMPARE, RESUME_RTOL = 20, 1e-3   # losses: CLI vs in process
+STREAM_STEPS, STREAM_RTOL = 100, 1e-3    # losses: streamed vs on the card
+REPORT_RENDERS = 8 + 4   # forward launches of a val report: 8 val, 4 train
 
 
 def log(*args):
@@ -565,7 +590,7 @@ def adaptation_loop(card: str, dev: torch.device, size: int):
             lambda: G.pack_resize(state, gopt, 2 * state.capacity)),
         "log-point read": host_ms(lambda: torch.cat([
             state.num_alive().to(torch.float32)[None],
-            F._tile_saturation(res["cfg"], state, batch, 0)[None],
+            F.tile_saturation(res["cfg"], state, batch, 0)[None],
             torch.zeros(LOOP_LOG_EVERY, device=dev)]).tolist()),
         f"mean_knn_dist2 ({len(xyz)} points)": host_ms(
             lambda: mean_knn_dist2(xyz)),
@@ -1246,8 +1271,247 @@ def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
                                  f"differs from the exact clip")
         if not psnr > REUSE_PSNR_MIN:
             raise AssertionError(f"{mode}: {psnr:.2f} dB against exact")
-    tmp.cleanup()
-    return dict(launches=exact["launches"], fixture=fixture)
+    return dict(launches=exact["launches"], fixture=fixture, tmp=tmp,
+                scene=scene)
+
+
+def _key_paths(tree, prefix=""):
+    """A bundle's key paths, sorted; an empty map ends in '/' (as
+    tests/test_torch_cli.py lists them)."""
+    if isinstance(tree, dict):
+        if not tree:
+            return [prefix + "/"]
+        return sorted(p for k, v in tree.items()
+                      for p in _key_paths(v, f"{prefix}/{k}"))
+    return [prefix]
+
+
+def _in_process(main, argv):
+    """A CLI's ``main(argv)`` with its output kept: (result, output, wall
+    s, each kernel's launches)."""
+    fns = kernel_fns()
+    for fn in fns:
+        fn.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = main(argv)
+    torch.cuda.synchronize()
+    return (res, out.getvalue(), time.perf_counter() - t,
+            {fn.__name__: fn.launches for fn in fns})
+
+
+def adaptation_clis(card: str, dev: torch.device, scene: str,
+                    work: str) -> dict:
+    """Phase 13: the adaptation CLIs on phase 12's scene, with resume and
+    streaming. Returns each kernel's launches on the in-process CLI runs
+    and the resumed run's in-process twin."""
+    from instag_torch.cli import adapt, synthesize_fuse, train_face
+    from instag_torch.cli import train_fuse_con, train_mouth
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data.dataset import load_frames
+    from instag_torch.io import msgpack
+    from instag_torch.io.checkpoints import (gopt_from_dict, load_branch,
+                                             load_bundle, restore_pmf_opt,
+                                             restore_umf_opt, train_bundle,
+                                             pmf_opt_to_dict,
+                                             umf_opt_to_dict)
+    from instag_torch.train import face as F
+    from instag_torch.train.common import FrameMeta, frame_source
+    from instag_torch.train.optim import (pmf_optimizer, umf_optimizer,
+                                          umf_schedule)
+
+    with open(os.path.join(ROOT, BUNDLE_KEYS)) as f:
+        want_keys = json.load(f)
+    device = ["--device", dev.type]
+    total = {}
+
+    def keys_check(run, which):
+        got = _key_paths(load_bundle(os.path.join(
+            run, f"chkpnt_{which}_latest.pkl")))
+        if got != want_keys[which]:
+            raise AssertionError(f"{run}: {which} bundle keys differ from "
+                                 f"{BUNDLE_KEYS}")
+
+    def tally(name, launches):
+        total[name] = launches
+        for k, v in launches.items():
+            total.setdefault("all", {}).setdefault(k, 0)
+            total["all"][k] += v
+
+    # adapt as a user runs it
+    run_a = os.path.join(work, "adapt")
+    cmd = [sys.executable, "-m", "instag_torch.cli.adapt", "-s", scene, "-m",
+           run_a, "--iterations", str(ADAPT_ITERS), "--fuse_iterations",
+           str(ADAPT_FUSE_ITERS), *device]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    adapt_s = time.perf_counter() - t
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    for line in (lines[-20:] if proc.returncode else
+                 [x for x in lines if x.startswith("[adapt]")]):
+        log(f"  adapt | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.adapt exited {proc.returncode}")
+    for which in ("face", "mouth", "fuse"):
+        keys_check(run_a, which)
+    with open(os.path.join(run_a, "metrics.json")) as f:
+        scores = json.load(f)
+    if not (np.isfinite(scores["psnr"]) and np.isfinite(scores["lpips"])
+            and isinstance(scores["lpips_real"], bool)):
+        raise AssertionError(f"metrics.json: {scores}")
+    if not any(os.path.exists(os.path.join(run_a, f"out.mp4{x}"))
+               for x in ("", ".frames.npz")):
+        raise AssertionError("cli.adapt wrote no clip")
+    log(f"[{card}] cli.adapt ({ADAPT_ITERS} face, {ADAPT_ITERS} mouth, "
+        f"{ADAPT_FUSE_ITERS} fusion steps, the {CLIP_VAL}-frame val clip "
+        f"with its variants and PLYs, metrics): exit 0 in {adapt_s:.2f} s "
+        f"wall as a process; metrics.json {scores}; bundle keys equal "
+        f"{BUNDLE_KEYS}")
+
+    # train_face, then resumed from its bundle in another run directory
+    base = ["-s", scene, *device]
+    run_b, run_c = os.path.join(work, "face"), os.path.join(work, "resumed")
+    res_b, out_b, wall_b, n_b = _in_process(train_face.main, base + [
+        "-m", run_b, "--iterations", str(RESUME_AT)])
+    path_b = os.path.join(run_b, "chkpnt_face_latest.pkl")
+    res_c, out_c, wall_c, n_c = _in_process(train_face.main, base + [
+        "-m", run_c, "--iterations", str(RESUME_TO), "--start_checkpoint",
+        path_b])
+    for name, run, n, out, steps in (
+            ("train_face", run_b, n_b, out_b, RESUME_AT),
+            ("train_face --start_checkpoint", run_c, n_c, out_c,
+             RESUME_TO - RESUME_AT)):
+        keys_check(run, "face")
+        reports = out.count("[face eval ")
+        want = {"composite_fwd": steps + REPORT_RENDERS * reports,
+                "composite_bwd": steps, "scatter_add_tiles": steps}
+        if n != want:
+            raise AssertionError(f"{name}: launches {n}, expected {want}")
+        tally(name, n)
+    wall = {"train_face": wall_b, "resume": wall_c}
+    with open(os.path.join(run_c, "metrics.jsonl")) as f:
+        logged = sorted({json.loads(x)["step"] for x in f})
+    if not logged or logged[0] <= RESUME_AT:
+        raise AssertionError(f"the resumed run logged at {logged}")
+
+    # the restored objects write the bundle's bytes back
+    with open(path_b, "rb") as f:
+        raw = f.read()
+    b = msgpack.unpackb(raw)
+    branch = load_branch(path_b, "face", device=dev)
+    umf_opt, umf_sched = umf_optimizer(branch["umf_net"],
+                                       total_iters=RESUME_TO)
+    pmf_opt = pmf_optimizer(branch["pmf_net"])
+    restore_umf_opt(branch["umf_net"], umf_opt, umf_sched,
+                    b["umf_opt_state"])
+    restore_pmf_opt(branch["pmf_net"], pmf_opt, b["pmf_opt_state"])
+    again = train_bundle(
+        dict(branch, gopt=gopt_from_dict(b["gopt"], dev),
+             umf_opt_state=umf_opt_to_dict(branch["umf_net"], umf_opt,
+                                           umf_sched),
+             pmf_opt_state=pmf_opt_to_dict(branch["pmf_net"], pmf_opt)),
+        RESUME_AT, max_sh_degree=b["max_sh_degree"])
+    if msgpack.packb(again) != raw:
+        raise AssertionError("the restored face bundle writes other bytes")
+    mult = umf_schedule(RESUME_TO)(RESUME_AT)
+    if umf_sched.last_epoch != RESUME_AT or not all(
+            abs(g["lr"] - base_lr * mult) <= 1e-12 * base_lr
+            for g, base_lr in zip(umf_opt.param_groups, umf_sched.base_lrs)):
+        raise AssertionError("the UMF schedule did not resume at its count")
+
+    # the resumed run in process, from the same bundle
+    mc = ModelConfig(source_path=scene)
+    records = load_frames(scene, device=dev)
+    meta = FrameMeta.from_records(records)
+    fns = kernel_fns()
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    twin = F.train_face(mc, OptimizationConfig(iterations=RESUME_TO),
+                        frame_source(records, with_priors=True, device=dev),
+                        meta, resume_bundle=load_bundle(path_b), device=dev)
+    torch.cuda.synchronize()
+    wall["in process"] = time.perf_counter() - t
+    n_twin = {fn.__name__: fn.launches for fn in fns}
+    steps = RESUME_TO - RESUME_AT
+    if any(v != steps for v in n_twin.values()):
+        raise AssertionError(f"resumed in process: launches {n_twin}")
+    tally("train_face(resume_bundle=...)", n_twin)
+    a = np.array(res_c["losses"][:RESUME_COMPARE])
+    w = np.array(twin["losses"][:RESUME_COMPARE])
+    rel = float(np.max(np.abs(a - w) / np.abs(w)))
+    if not (len(a) == RESUME_COMPARE and rel <= RESUME_RTOL
+            and np.isfinite(res_c["losses"]).all()):
+        raise AssertionError(f"resumed CLI vs in process: rel {rel}")
+    log(f"[{card}] cli.train_face (in process): {RESUME_AT} steps in "
+        f"{wall_b:.2f} s ({wall_b * 1e3 / RESUME_AT:.2f} ms a step, scene "
+        f"read, val reports and bundle included), resumed to {RESUME_TO} "
+        f"in {wall_c:.2f} s ({wall_c * 1e3 / steps:.2f} ms a step); "
+        f"in-process train_face(resume_bundle=...) {wall['in process']:.2f} "
+        f"s ({wall['in process'] * 1e3 / steps:.2f} ms a step); first "
+        f"log point {logged[0]}; restored bundle bit-equal on re-save; UMF "
+        f"scheduler at count {umf_sched.last_epoch}, rates x{mult:g}; "
+        f"first {RESUME_COMPARE} losses within rel {rel:.2e} of in "
+        f"process (rtol {RESUME_RTOL}); launches {n_b}, {n_c}, {n_twin}")
+
+    # mouth, fusion and the clip on the resumed run
+    res_m, out_m, wall_m, n_m = _in_process(train_mouth.main, base + [
+        "-m", run_c, "--iterations", str(CLI_MOUTH_ITERS)])
+    keys_check(run_c, "mouth")
+    if any(v != CLI_MOUTH_ITERS for v in n_m.values()):
+        raise AssertionError(f"cli.train_mouth: launches {n_m}")
+    tally("train_mouth", n_m)
+    res_f, out_f, wall_f, n_f = _in_process(train_fuse_con.main, base + [
+        "-m", run_c, "--iterations", str(CLI_FUSE_ITERS)])
+    keys_check(run_c, "fuse")
+    if any(v != 2 * CLI_FUSE_ITERS for v in n_f.values()):
+        raise AssertionError(f"cli.train_fuse_con: launches {n_f}")
+    tally("train_fuse_con", n_f)
+    _, out_s, wall_s, n_s = _in_process(synthesize_fuse.main, [
+        "-m", run_c, "--fast", *device])
+    tally("synthesize_fuse", n_s)
+    synth_line = out_s.strip().splitlines()[-1]
+    for name, res in (("mouth", res_m), ("fuse", res_f)):
+        if not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"non-finite {name} losses")
+    log(f"[{card}] on the resumed run, in process: cli.train_mouth "
+        f"{CLI_MOUTH_ITERS} steps in {wall_m:.2f} s ("
+        f"{wall_m * 1e3 / CLI_MOUTH_ITERS:.2f} ms a step), "
+        f"cli.train_fuse_con {CLI_FUSE_ITERS} steps in {wall_f:.2f} s ("
+        f"{wall_f * 1e3 / CLI_FUSE_ITERS:.2f} ms a step), "
+        f"cli.synthesize_fuse --fast {wall_s:.2f} s ({synth_line}); "
+        f"launches {n_m}, {n_f}, {n_s}")
+
+    # streaming: the frames in pinned host memory, uploaded a block at a time
+    runs = {}
+    for stream in (False, True):
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = F.train_face(mc, OptimizationConfig(iterations=STREAM_STEPS),
+                             frame_source(records, stream=stream,
+                                          device=dev), meta,
+                             lpips_enabled=False, device=dev)
+        torch.cuda.synchronize()
+        runs[stream] = (r["losses"], time.perf_counter() - t,
+                        {fn.__name__: fn.launches for fn in fns})
+    tally("train_face streamed", runs[True][2])
+    a, w = np.array(runs[True][0]), np.array(runs[False][0])
+    rel = float(np.max(np.abs(a - w) / np.abs(w)))
+    if not (len(a) == STREAM_STEPS and rel <= STREAM_RTOL
+            and all(v == STREAM_STEPS for v in runs[True][2].values())):
+        raise AssertionError(f"streamed run: rel {rel}, {runs[True][2]}")
+    log(f"[{card}] train_face, {STREAM_STEPS} steps without LPIPS: frames "
+        f"streamed from pinned host memory {runs[True][1]:.2f} s, on the "
+        f"card {runs[False][1]:.2f} s; losses within rel {rel:.2e} "
+        f"(rtol {STREAM_RTOL}); launches {runs[True][2]}")
+    return total
 
 
 def main() -> int:
@@ -1574,6 +1838,11 @@ def main() -> int:
 
     # ---- 12. clip synthesis through the CLI --------------------------------
     clip = clip_synthesis(card, dev, fuse_res)
+
+    # ---- 13. the adaptation CLIs --------------------------------------------
+    clis = adaptation_clis(card, dev, clip["scene"], clip["tmp"].name)
+    clip["tmp"].cleanup()
+    later["adaptation_clis"] = clis["all"]
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())

@@ -1,7 +1,8 @@
 """Shared training pieces (counterpart of instag_tpu/train/common.py): the
 frame batch on one device, built from the dataset reader's records, the
-host-side frame meta of the curricula, the Gaussian learning rates, the
-lips rectangle mask and the photometric loss."""
+host-memory frame store of long clips, the host-side frame meta of the
+curricula, the Gaussian learning rates, the lips rectangle mask and the
+photometric loss."""
 
 from __future__ import annotations
 
@@ -148,6 +149,56 @@ def build_frame_batch(records, with_priors: bool = False,
         fields["normal"] = stack("normal", np.float32)
         fields["depth"] = stack("depth", np.float32)
     return FrameBatch(**fields)
+
+
+class HostFrameStore:
+    """The frames of a long clip in host memory (counterpart of the JAX
+    package's ``HostFrameStore``): the records stacked as a FrameBatch on
+    the host (``host``), pinned when the frames go to a card, and
+    ``gather(idxs)``, a block's frames as a FrameBatch on ``device``,
+    gathered into pinned buffers and copied with ``non_blocking=True``, so
+    that the copy of one block overlaps the card's work on the last."""
+
+    def __init__(self, records, with_priors: bool = False,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self._pin = self.device.type == "cuda"
+        host = build_frame_batch(records, with_priors, device="cpu")
+        self.host = FrameBatch(**{
+            k: v.pin_memory() if self._pin and v is not None else v
+            for k, v in vars(host).items()})
+
+    @property
+    def num_frames(self) -> int:
+        return self.host.num_frames
+
+    def gather(self, idxs) -> FrameBatch:
+        idx = torch.as_tensor(np.asarray(idxs, np.int64))
+
+        def upload(x):
+            if x is None:
+                return None
+            out = torch.empty((len(idx),) + tuple(x.shape[1:]),
+                              dtype=x.dtype, pin_memory=self._pin)
+            torch.index_select(x, 0, idx, out=out)
+            return out.to(self.device, non_blocking=True)
+        return FrameBatch(**{k: upload(v) for k, v in vars(self.host).items()})
+
+
+def frame_source(records, with_priors: bool = False,
+                 stream: bool | None = None, stream_threshold: int = 1000,
+                 device: str | torch.device = "cuda"
+                 ) -> FrameBatch | HostFrameStore:
+    """The trainers' frames: a FrameBatch on ``device``, or with ``stream``
+    (by default above ``stream_threshold`` frames, as the JAX trainers
+    switch) a HostFrameStore that uploads each block's frames."""
+    if stream is None:
+        stream = len(records) > stream_threshold
+    if stream:
+        print(f"[train] streaming mode: {len(records)} frames stay in host "
+              "memory", flush=True)
+        return HostFrameStore(records, with_priors, device)
+    return build_frame_batch(records, with_priors, device)
 
 
 def gaussian_backward(loss_fn, state: G.GaussianState, nets):

@@ -26,7 +26,11 @@ and, at log points, the adaptive capacity. Losses stay on the device and
 are read at log points only.
 
 The curriculum reads its window values from a float64 ``FrameMeta``, as
-the JAX loop reads them from its frame records.
+the JAX loop reads them from its frame records. The loop draws a block's
+frames before running it, so that a ``HostFrameStore`` can upload them
+together; it resumes from a bundle (the state, the nets and every
+optimizer state), and its val reporter (``train.report``) runs every
+``test_every`` steps.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from torch import nn
 from ..config import ModelConfig, OptimizationConfig
 from ..data.dataset import random_init_points, scene_extent
 from ..device import resolve_device
+from ..io.checkpoints import (branch_from_bundle, gopt_from_dict,
+                              pmf_opt_to_dict, restore_pmf_opt,
+                              restore_umf_opt, umf_opt_to_dict)
 from ..models import gaussians as G
 from ..models.lpips import load_lpips_params
 from ..models.motion import (MotionNetwork, PersonalizedMotionNetwork,
@@ -50,8 +57,8 @@ from ..ops.rasterize import RasterizeConfig, selection_stats
 from ..render import render_motion
 from ..utils.losses import normalize_depth, patchify
 from ..utils.sh import eval_sh
-from .common import (FrameBatch, FrameMeta, gaussian_backward, gaussian_lrs,
-                     rect_mask, rgb_loss)
+from .common import (FrameBatch, FrameMeta, HostFrameStore,
+                     gaussian_backward, gaussian_lrs, rect_mask, rgb_loss)
 from .optim import pmf_optimizer, umf_optimizer
 
 
@@ -277,8 +284,8 @@ def face_patch_sizes(h: int, w: int) -> tuple[int, ...]:
         or (min(h, w),)
 
 
-def _tile_saturation(cfg: RasterizeConfig, state: G.GaussianState,
-                     batch: FrameBatch, i: int) -> torch.Tensor:
+def tile_saturation(cfg: RasterizeConfig, state: G.GaussianState,
+                    batch: FrameBatch, i: int) -> torch.Tensor:
     """The fraction of tiles of frame ``i`` whose true hit count exceeds
     ``max_per_tile`` (the K-cut diagnostic of the log line), as a 0-d
     tensor on the state's device."""
@@ -365,33 +372,49 @@ def _step_flags(step: int, warm_step: int, lpips_start: int, long: bool,
 
 
 def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
-               batch: FrameBatch, meta: FrameMeta, *,
+               batch: FrameBatch | HostFrameStore, meta: FrameMeta, *,
                umf_net: nn.Module | None = None,
                pmf_net: nn.Module | None = None, long: bool = False,
                log_every: int = 500, eval_fn=None, warm_step: int = 3000,
                seed: int = 0, lpips_enabled: bool = True,
+               resume_bundle: dict | None = None,
+               log_dir: str | None = None, test_every: int = 0,
+               val_batch: FrameBatch | None = None,
                device: str | torch.device = "cuda") -> dict:
     """Adapt a face cloud and the UMF to the frames of ``batch`` (on
-    ``device``) over ``opt_cfg.iterations`` steps. ``meta`` holds the
-    frames' curriculum values in float64. With ``lpips_enabled`` the LPIPS
-    phase runs from ``iterations - 2500`` (``models.lpips``: random
-    features unless converted weights are present).
+    ``device``, or a ``HostFrameStore`` that uploads each block's frames)
+    over ``opt_cfg.iterations`` steps. ``meta`` holds the frames' curriculum
+    values in float64. With ``lpips_enabled`` the LPIPS phase runs from
+    ``iterations - 2500`` (``models.lpips``: random features unless
+    converted weights are present).
 
     ``umf_net`` / ``pmf_net`` are the starting nets (trained in place and
     moved to ``device``); absent, they start from ``seed`` through
     ``torch.Generator``s. The cloud starts from ``random_init_points(
     model_cfg.init_num, seed)``; the curriculum draws from
     ``numpy.random.default_rng(seed)`` and the split children from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. ``eval_fn(end,
-    state, umf_net, pmf_net)`` runs at log points. Returns the state, its
-    Adam state ``gopt``, the nets, the per-step ``losses``, the raster
-    ``cfg``, the scene ``extent`` and ``max_sh_degree``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``resume_bundle`` (a face bundle of either package) replaces the cloud,
+    its Adam state, both nets and both optimizer states, and the run goes
+    on from its ``iteration + 1``; the curriculum, its stack and the split
+    draws start afresh from ``seed``, as in the JAX package, so a resumed
+    run is not the uninterrupted one. ``eval_fn(end, state, umf_net,
+    pmf_net)`` runs at log points; with ``log_dir`` or ``test_every`` a
+    ``FaceValReporter`` renders ``val_batch`` and the first 32 training
+    frames every ``test_every`` steps (``iterations // 5`` when only
+    ``log_dir`` is given) and at the end. Returns the state, its Adam
+    state ``gopt``, the nets and their optimizer states as bundle dicts
+    (``umf_opt_state``, ``pmf_opt_state``), the per-step ``losses``, the
+    raster ``cfg``, the scene ``extent`` and ``max_sh_degree``."""
     dev = resolve_device(device)
-    if batch.image.device.type != dev.type:
-        raise ValueError(f"batch lives on {batch.image.device}, not {dev}")
-    has_priors = batch.normal is not None
-    _, extent = scene_extent(batch.camera_center.cpu().numpy())
-    h, w = batch.image.shape[1:3]
+    stream = isinstance(batch, HostFrameStore)
+    frames = batch.host if stream else batch
+    where = batch.device if stream else batch.image.device
+    if where.type != dev.type:
+        raise ValueError(f"batch lives on {where}, not {dev}")
+    has_priors = frames.normal is not None
+    _, extent = scene_extent(frames.camera_center.cpu().numpy())
+    h, w = frames.image.shape[1:3]
     cfg = RasterizeConfig(h, w, max_per_tile=model_cfg.max_per_tile,
                           approx_topk=model_cfg.approx_topk)
 
@@ -411,6 +434,13 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                  max_sh, extent)
     gopt = G.adam_init(state.params)
 
+    first_iter = 1
+    if resume_bundle is not None:
+        r = branch_from_bundle(resume_bundle, "face",
+                               model_cfg.audio_extractor, dev)
+        state, umf_net, pmf_net = r["state"], r["umf_net"], r["pmf_net"]
+        gopt = gopt_from_dict(resume_bundle["gopt"], dev)
+        first_iter = int(resume_bundle.get("iteration", 0)) + 1
     if umf_net is None:
         umf_net = init_motion_params(MotionNetwork(model_cfg.audio_extractor),
                                      torch.Generator().manual_seed(2 * seed))
@@ -426,6 +456,21 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                           long=long, lpips=lpips,
                           lpips_patches=patch_sizes if lpips_enabled else (),
                           lips_crop=min(96, h, w))
+    if resume_bundle is not None:
+        if "umf_opt_state" in resume_bundle:
+            restore_umf_opt(umf_net, step.umf_opt, step.umf_sched,
+                            resume_bundle["umf_opt_state"])
+        if "pmf_opt_state" in resume_bundle:
+            restore_pmf_opt(pmf_net, step.pmf_opt,
+                            resume_bundle["pmf_opt_state"])
+
+    reporter = None
+    if log_dir or test_every:
+        from .report import FaceValReporter
+        rep_train = (batch.gather(range(min(32, batch.num_frames)))
+                     if stream else batch)
+        reporter = FaceValReporter(cfg, val_batch, rep_train, log_dir)
+        test_every = test_every or max(iterations // 5, 1)
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(dev).manual_seed(seed)
@@ -435,23 +480,30 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     t0 = time.time()
 
     interval = opt_cfg.densification_interval
-    it = 1
+    it = first_iter
     while it <= iterations:
         # a block ends at the next event boundary: densification interval
         # or 1000-step SH bump
         end = min(iterations, ((it - 1) // interval + 1) * interval,
                   ((it - 1) // 1000 + 1) * 1000)
         n = end - it + 1
-        block_losses = []
+        draws = []
         for s in range(it, end + 1):
             i = sample_frame_curriculum(rng, meta, stack, s, warm_step,
                                         iterations)
-            p = int(rng.integers(len(patch_sizes)))
-            state, gopt, loss = step(state, gopt, batch, i, s, _step_flags(
+            draws.append((i, int(rng.integers(len(patch_sizes)))))
+        blk = batch
+        if stream:
+            blk = batch.gather([i for i, _ in draws])
+            draws = [(j, p) for j, (_, p) in enumerate(draws)]
+        block_losses = []
+        for s, (i, p) in zip(range(it, end + 1), draws):
+            state, gopt, loss = step(state, gopt, blk, i, s, _step_flags(
                 s, warm_step, lpips_start, long, opt_cfg), p)
             block_losses.append(loss)
         losses.append(torch.stack(block_losses))
         it = end + 1
+        last = draws[-1][0]
 
         # host-side events at block ends
         if end % 1000 == 0:
@@ -471,11 +523,11 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             state, gopt = G.reset_opacity(state, gopt)
         if end > opt_cfg.densify_from_iter and end % interval == 0:
             state, gopt = _prune_green_and_depth(
-                state, gopt, batch.camera_center[i], not long)
+                state, gopt, blk.camera_center[last], not long)
 
         if end % log_every < n:
             # one read back for everything the log line needs
-            sat = _tile_saturation(cfg, state, batch, i)
+            sat = tile_saturation(cfg, state, blk, last)
             recent = losses[-max(1, log_every // interval):]
             vals = torch.cat([state.num_alive().to(torch.float32)[None],
                               sat[None], *recent]).tolist()
@@ -500,7 +552,15 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                                 keep_slots=det_slots)
             if eval_fn is not None:
                 eval_fn(end, state, umf_net, pmf_net)
+        if reporter is not None and (end % test_every < n
+                                     or end == iterations):
+            scores = reporter(end, state, umf_net, pmf_net)
+            print(f"[face eval {end}] " + " ".join(
+                f"{k}={v:.3f}" for k, v in scores.items()), flush=True)
 
     return dict(state=state, gopt=gopt, umf_net=umf_net, pmf_net=pmf_net,
+                umf_opt_state=umf_opt_to_dict(umf_net, step.umf_opt,
+                                              step.umf_sched),
+                pmf_opt_state=pmf_opt_to_dict(pmf_net, step.pmf_opt),
                 losses=torch.cat(losses).tolist() if losses else [],
                 cfg=cfg, extent=extent, max_sh_degree=max_sh)

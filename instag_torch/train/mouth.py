@@ -19,7 +19,9 @@ frames first, then a window that slides down, and at least 20 mouth
 pixels), blocks that end at the next densification interval or 1000-step
 boundary, and at block ends the SH bump, densification (with a rising
 opacity floor) followed after step 2000 by softening the greenish splats,
-the opacity reset and, at log points, the adaptive capacity.
+the opacity reset and, at log points, the adaptive capacity. It draws a
+block's frames before running it (for a ``HostFrameStore``) and resumes
+from a bundle, as the face loop does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from torch import nn
 from ..config import ModelConfig, OptimizationConfig
 from ..data.dataset import random_init_points, scene_extent
 from ..device import resolve_device
+from ..io.checkpoints import (branch_from_bundle, gopt_from_dict,
+                              pmf_opt_to_dict, restore_pmf_opt,
+                              restore_umf_opt, umf_opt_to_dict)
 from ..models import gaussians as G
 from ..models.motion import (MouthMotionNetwork, PersonalizedMotionNetwork,
                              init_motion_params)
@@ -41,8 +46,8 @@ from ..ops.rasterize import RasterizeConfig
 from ..render import render_motion_mouth
 from ..utils.general import inverse_sigmoid
 from ..utils.sh import eval_sh
-from .common import (FrameBatch, FrameMeta, gaussian_backward, gaussian_lrs,
-                     rect_mask, rgb_loss)
+from .common import (FrameBatch, FrameMeta, HostFrameStore,
+                     gaussian_backward, gaussian_lrs, rect_mask, rgb_loss)
 from .optim import pmf_optimizer, umf_optimizer
 
 
@@ -208,16 +213,17 @@ def sample_mouth_curriculum(rng: np.random.Generator, au25_vals, au25_pcts,
 
 
 def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
-                batch: FrameBatch, meta: FrameMeta, face_bundle: dict, *,
-                umf_net: nn.Module | None = None,
+                batch: FrameBatch | HostFrameStore, meta: FrameMeta,
+                face_bundle: dict, *, umf_net: nn.Module | None = None,
                 pmf_net: nn.Module | None = None, long: bool = False,
                 log_every: int = 500, warm_step: int = 3000, seed: int = 0,
+                resume_bundle: dict | None = None,
                 device: str | torch.device = "cuda") -> dict:
     """Adapt a mouth cloud, the mouth UMF and the mouth PMF to the frames of
-    ``batch`` (on ``device``) over ``opt_cfg.iterations`` steps, under the
-    frozen ``face_bundle`` (the result of ``train.face.train_face``: its
-    ``state`` and ``umf_net``). ``meta`` holds the frames' curriculum
-    values in float64.
+    ``batch`` (on ``device``, or a ``HostFrameStore``) over
+    ``opt_cfg.iterations`` steps, under the frozen ``face_bundle`` (the
+    result of ``train.face.train_face``: its ``state`` and ``umf_net``).
+    ``meta`` holds the frames' curriculum values in float64.
 
     ``umf_net`` / ``pmf_net`` are the starting nets (trained in place and
     moved to ``device``); absent, they start from ``seed`` through
@@ -225,14 +231,21 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     model_cfg.init_num, seed)`` halved and moved down by 0.05, at
     ``model_cfg.sh_degree``; the curriculum and ``k`` draw from
     ``numpy.random.default_rng(seed)`` and the split children from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. Returns the
-    state, its Adam state ``gopt``, the nets, the per-step ``losses``, the
+    ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``resume_bundle`` (a mouth bundle of either package) replaces the
+    cloud, its Adam state, both nets and both optimizer states, and the
+    run goes on from its ``iteration + 1`` with fresh draws, as the face
+    loop resumes. Returns the state, its Adam state ``gopt``, the nets and
+    their optimizer states as bundle dicts, the per-step ``losses``, the
     raster ``cfg`` and the scene ``extent``."""
     dev = resolve_device(device)
-    if batch.image.device.type != dev.type:
-        raise ValueError(f"batch lives on {batch.image.device}, not {dev}")
-    _, extent = scene_extent(batch.camera_center.cpu().numpy())
-    h, w = batch.image.shape[1:3]
+    stream = isinstance(batch, HostFrameStore)
+    frames = batch.host if stream else batch
+    where = batch.device if stream else batch.image.device
+    if where.type != dev.type:
+        raise ValueError(f"batch lives on {where}, not {dev}")
+    _, extent = scene_extent(frames.camera_center.cpu().numpy())
+    h, w = frames.image.shape[1:3]
     cfg = RasterizeConfig(h, w, max_per_tile=model_cfg.max_per_tile,
                           approx_topk=model_cfg.approx_topk)
 
@@ -253,6 +266,13 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                  model_cfg.sh_degree, extent)
     gopt = G.adam_init(state.params)
 
+    first_iter = 1
+    if resume_bundle is not None:
+        r = branch_from_bundle(resume_bundle, "mouth",
+                               model_cfg.audio_extractor, dev)
+        state, umf_net, pmf_net = r["state"], r["umf_net"], r["pmf_net"]
+        gopt = gopt_from_dict(resume_bundle["gopt"], dev)
+        first_iter = int(resume_bundle.get("iteration", 0)) + 1
     if umf_net is None:
         umf_net = init_motion_params(
             MouthMotionNetwork(model_cfg.audio_extractor),
@@ -266,6 +286,13 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                            face_bundle["state"], face_bundle["umf_net"],
                            extent, dev, total_iters=iterations,
                            warm_step=warm_step, long=long)
+    if resume_bundle is not None:
+        if "umf_opt_state" in resume_bundle:
+            restore_umf_opt(umf_net, step.umf_opt, step.umf_sched,
+                            resume_bundle["umf_opt_state"])
+        if "pmf_opt_state" in resume_bundle:
+            restore_pmf_opt(pmf_net, step.pmf_opt,
+                            resume_bundle["pmf_opt_state"])
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(dev).manual_seed(seed)
@@ -275,22 +302,29 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     t0 = time.time()
 
     interval = opt_cfg.densification_interval
-    it = 1
+    it = first_iter
     while it <= iterations:
         end = min(iterations, ((it - 1) // interval + 1) * interval,
                   ((it - 1) // 1000 + 1) * 1000)
         n = end - it + 1
-        block_losses = []
+        draws = []
         for s in range(it, end + 1):
             i = sample_mouth_curriculum(rng, meta.au25, meta.au25_pcts,
                                         meta.mouth_px, stack, s, warm_step,
                                         iterations, 7 if long else 5)
-            k = int(rng.integers(10, 51))
-            state, gopt, loss = step(state, gopt, batch, i, s, k, MouthFlags(
+            draws.append((i, int(rng.integers(10, 51))))
+        blk = batch
+        if stream:
+            blk = batch.gather([i for i, _ in draws])
+            draws = [(j, k) for j, (_, k) in enumerate(draws)]
+        block_losses = []
+        for s, (i, k) in zip(range(it, end + 1), draws):
+            state, gopt, loss = step(state, gopt, blk, i, s, k, MouthFlags(
                 align=float(s > 1000), use_regs=float(s > warm_step)))
             block_losses.append(loss)
         losses.append(torch.stack(block_losses))
         it = end + 1
+        last = draws[-1][0]
 
         # host-side events at block ends
         if end % 1000 == 0:
@@ -306,7 +340,7 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 20.0 if end > opt_cfg.opacity_reset_interval else None,
                 opt_cfg.percent_dense)
             if end > 2000:
-                state = _soften_green(state, batch.camera_center[i])
+                state = _soften_green(state, blk.camera_center[last])
         if (not long) and end % opt_cfg.opacity_reset_interval == 0 \
                 and end < densify_until:
             state, gopt = G.reset_opacity(state, gopt)
@@ -334,5 +368,8 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                                 keep_slots=det_slots)
 
     return dict(state=state, gopt=gopt, umf_net=umf_net, pmf_net=pmf_net,
+                umf_opt_state=umf_opt_to_dict(umf_net, step.umf_opt,
+                                              step.umf_sched),
+                pmf_opt_state=pmf_opt_to_dict(pmf_net, step.pmf_opt),
                 losses=torch.cat(losses).tolist() if losses else [],
                 cfg=cfg, extent=extent)

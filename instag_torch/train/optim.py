@@ -22,6 +22,9 @@ import torch
 from torch import nn
 
 
+LABELS = ("net", "encoder", "audio_att", "align")
+
+
 def label_for_name(name: str) -> str:
     if "audio_att_net" in name:
         return "audio_att"

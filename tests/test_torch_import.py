@@ -88,3 +88,18 @@ def test_approx_topk_is_refused():
     assert RasterizeConfig(32, 32).approx_topk is False
     with pytest.raises(ValueError, match="approx"):
         RasterizeConfig(32, 32, approx_topk=True)
+
+
+@pytest.mark.parametrize("name", ["train_face", "train_mouth",
+                                  "train_fuse_con", "adapt"])
+def test_adaptation_clis_default_to_the_card(name, monkeypatch, tmp_path):
+    """Without ``--device cpu`` each adaptation CLI asks for the card, and
+    raises before it reads or writes anything where there is none."""
+    import importlib
+
+    cli = importlib.import_module(f"instag_torch.cli.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-s", str(tmp_path / "scene"), "-m",
+                  str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()

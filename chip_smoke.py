@@ -93,6 +93,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
      and 100 face steps with the frames streamed from pinned host memory
      against the same steps from the frames on the card. Each CLI's wall
      time and ms per step, and the kernels' launches on the CLI path.
+ 14. multi-identity pre-training at full width (``ModelConfig()``, K=256,
+     deepspeech nets; 2 identities, each a 512x512 ``generate_scene`` of 16
+     train frames with ``variation`` 0.3 and its own seed; 2000 initial
+     face and 5000 mouth splats, as scripts/pretrain_con.sh starts them):
+     ``train.pretrain.pretrain_face`` for 1050 steps an identity (100 of
+     warm-up an identity, densification from 25 every 25, the green
+     prune after each, SH bumps at 1000 and 2000, log points every 250),
+     then ``pretrain_mouth`` under its result for 600 steps an identity:
+     finite losses that fall, one launch of each kernel per step, a
+     densification that changed the live count; one face motion step
+     without its D-SSIM term (noise over the background-green windows)
+     through the kernels against plain autograd, the other identity's PMF
+     bit-unchanged by a step, the EMA update on the card equal to the
+     CPU's; each branch's warm-up and motion step alone on the final
+     states and one profiled motion step of each; ``python -m
+     instag_torch.cli.pretrain --iterations 40`` as a subprocess, its
+     bundles' key paths equal to the JAX CLIs'; and ``cli.train_face
+     --pretrain_path`` on its EMA bundle for 50 steps in process, from a
+     UMF bit-equal to the EMA.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -161,6 +180,23 @@ CLI_MOUTH_ITERS, CLI_FUSE_ITERS = 150, 100
 RESUME_COMPARE, RESUME_RTOL = 20, 1e-3   # losses: CLI vs in process
 STREAM_STEPS, STREAM_RTOL = 100, 1e-3    # losses: streamed vs on the card
 REPORT_RENDERS = 8 + 4   # forward launches of a val report: 8 val, 4 train
+# phase 14: multi-identity pre-training (scripts/pretrain_con.sh's inits)
+PRE_IDS = ["id_a", "id_b"]
+PRE_FRAMES = 16
+PRE_FACE_INIT, PRE_MOUTH_INIT = 2000, 5000
+PRE_FACE_OPT = dict(iterations=1050, densify_from_iter=25,
+                    densification_interval=25)
+PRE_MOUTH_ITERS = 600
+PRE_WARM_PER_ID = 100
+PRE_LOG_EVERY = 250
+PRE_CLI_ITERS = 40
+PRE_ADAPT_STEPS = 50
+EMA_TOL = 1e-6           # card vs CPU EMA update: rtol and atol
+PRE_BUNDLES = {"pretrain_face": "chkpnt_face_latest.pkl",
+               "pretrain_ema_face": "chkpnt_ema_face_latest.pkl",
+               "pretrain_identity_face": "id_a_face_latest.pkl",
+               "pretrain_mouth": "chkpnt_mouth_latest.pkl",
+               "pretrain_ema_mouth": "chkpnt_ema_mouth_latest.pkl"}
 
 
 def log(*args):
@@ -1514,6 +1550,293 @@ def adaptation_clis(card: str, dev: torch.device, scene: str,
     return total
 
 
+def _count_calls(mod, name, calls):
+    """Replace ``mod.name`` by a wrapper that records each call's live
+    splats before and after; returns the original."""
+    fn = getattr(mod, name)
+
+    def run(state, *args, **kw):
+        out = fn(state, *args, **kw)
+        new = out[0] if isinstance(out, tuple) else out
+        calls.append((state.num_alive(), new.num_alive()))
+        return out
+    setattr(mod, name, run)
+    return fn
+
+
+def _timed_loop(fn, *args, **kw):
+    """``fn(*args, **kw)`` between two synchronizes, with the kernels'
+    launch counts set to 0 just before: (result, wall s, launches)."""
+    fns = kernel_fns()
+    for f in fns:
+        f.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t,
+            {f.__name__: f.launches for f in fns})
+
+
+def _loop_checks(tag, res, steps, launches):
+    losses = np.array(res["losses"])
+    first, last = losses[:100].mean(), losses[-100:].mean()
+    log(f"  {tag} loss: mean of the first 100 steps {first:.5f}, of the "
+        f"last 100 {last:.5f}; live splats / capacity "
+        + ", ".join(f"{int(s.num_alive())}/{s.capacity}"
+                    for s in res["states"])
+        + "; active SH degrees "
+        + str([s.active_sh_degree for s in res["states"]]))
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite or missing losses")
+    if not last < first:
+        raise AssertionError(f"{tag}: the loss did not fall")
+    if any(v != steps for v in launches.values()):
+        raise AssertionError(f"{tag}: expected one launch of each kernel "
+                             f"per step: {launches}")
+
+
+def pretraining(card: str, dev: torch.device) -> dict:
+    """Phase 14: multi-identity pre-training at full width, its checks and
+    its times. Returns each kernel's launches on the pre-training loops
+    and on the in-process ``cli.train_face`` run from their EMA bundle."""
+    import copy
+    import tempfile
+
+    from instag_torch.cli import train_face as train_face_cli
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data.dataset import load_frames
+    from instag_torch.data.synthetic import generate_scene
+    from instag_torch.io.checkpoints import load_bundle
+    from instag_torch.io.from_jax import load_motion_net
+    from instag_torch.models import gaussians as G
+    from instag_torch.models.motion import MotionNetwork
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.train import pretrain as P
+    from instag_torch.train.common import build_frame_batch
+    from instag_torch.train.optim import ema_update
+
+    with open(os.path.join(ROOT, BUNDLE_KEYS)) as f:
+        want_keys = json.load(f)
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "ids")
+    t = time.perf_counter()
+    for k, name in enumerate(PRE_IDS):
+        generate_scene(os.path.join(root, name), n_frames=PRE_FRAMES,
+                       size=SIZE, n_val=2, seed=20 + k, variation=0.3,
+                       device=dev)
+    log(f"[{card}] pre-training: {len(PRE_IDS)} identities of "
+        f"{PRE_FRAMES} frames at {SIZE}x{SIZE} written in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    # the face loop, counting the densifications and the green prunes
+    mc = ModelConfig(source_path=root, init_num=PRE_FACE_INIT)
+    oc = OptimizationConfig(**PRE_FACE_OPT)
+    densify, prune = [], []
+    saved = [(G, "densify_and_prune", _count_calls(G, "densify_and_prune",
+                                                   densify)),
+             (P, "_prune_green", _count_calls(P, "_prune_green", prune))]
+    try:
+        face, face_s, face_n = _timed_loop(
+            P.pretrain_face, mc, oc, PRE_IDS, log_every=PRE_LOG_EVERY,
+            warm_per_id=PRE_WARM_PER_ID, device=dev)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    face_steps = oc.iterations * len(PRE_IDS)
+    log(f"[{card}] pretrain_face: {face_steps} steps ({PRE_WARM_PER_ID} "
+        f"warm-up steps an identity) in {face_s:.2f} s wall, "
+        f"{face_s * 1e3 / face_steps:.2f} ms per step (events and set-up "
+        f"included; host clock around synchronize); kernel launches "
+        f"{face_n}")
+    counts = [(int(a), int(b)) for a, b in densify]
+    pruned = [(int(a), int(b)) for a, b in prune]
+    log(f"  densifications (live before, after) {counts}; green prunes "
+        f"{pruned}")
+    _loop_checks("pretrain_face", face, face_steps, face_n)
+    if not (counts and pruned and any(b != a for a, b in counts)):
+        raise AssertionError("no densification and green prune changed "
+                             "the live count")
+    if sum(s.active_sh_degree for s in face["states"]) != 2:
+        raise AssertionError("expected the SH bumps at steps 1000 and 2000")
+
+    # the mouth loop under the face result
+    mcm = ModelConfig(source_path=root, init_num=PRE_MOUTH_INIT,
+                      type="mouth")
+    ocm = OptimizationConfig(iterations=PRE_MOUTH_ITERS)
+    mouth, mouth_s, mouth_n = _timed_loop(
+        P.pretrain_mouth, mcm, ocm, PRE_IDS, face, log_every=PRE_LOG_EVERY,
+        warm_per_id=PRE_WARM_PER_ID, device=dev)
+    mouth_steps = ocm.iterations * len(PRE_IDS)
+    log(f"[{card}] pretrain_mouth: {mouth_steps} steps in {mouth_s:.2f} s "
+        f"wall, {mouth_s * 1e3 / mouth_steps:.2f} ms per step; kernel "
+        f"launches {mouth_n}")
+    _loop_checks("pretrain_mouth", mouth, mouth_steps, mouth_n)
+    loops = {k: face_n[k] + mouth_n[k] for k in face_n}
+
+    # one face motion step on the final state of identity 0, through the
+    # kernels against plain autograd, on copies of the nets. Both without
+    # the D-SSIM term: the render and its painted target are background
+    # green over most SSIM windows, where the SSIM's variance is float32
+    # cancellation noise, so a 1e-7 difference between two composites
+    # moves its gradient by many times the tolerance (ROADMAP.md §3).
+    batch = build_frame_batch(load_frames(os.path.join(root, PRE_IDS[0]),
+                                          "train", device=dev), device=dev)
+    extent = face["states"][0].spatial_lr_scale
+    umf = copy.deepcopy(face["umf_net"])
+    pmfs = [copy.deepcopy(p) for p in face["pmf_nets"]]
+    ema = copy.deepcopy(face["ema_net"])
+    plain_cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256,
+                                backend="plain")
+    sched = (1, face_steps)
+    l1_oc = OptimizationConfig(**PRE_FACE_OPT, lambda_dssim=0.0)
+    k_l1, p_l1 = (P.make_pretrain_face_step(cfg, l1_oc, umf, pmfs, ema,
+                                            extent, *sched, device=dev)
+                  for cfg in (face["cfg"], plain_cfg))
+    k_step = P.make_pretrain_face_step(face["cfg"], oc, umf, pmfs, ema,
+                                       extent, *sched, device=dev)
+    flags = P.PretrainFlags(use_regs=1.0, hair_paint=0.0)
+    state, gopt = face["states"][0], face["gopts"][0]
+
+    def step_grads(step):
+        loss, _, g_gauss, g_off = step.loss_and_grads(state, 0, batch, 1,
+                                                      flags)
+        grads = {f: getattr(g_gauss, f) for f in G.PARAM_FIELDS}
+        grads["means2d_offset"] = g_off
+        for tag, net in (("umf", umf), ("pmf", pmfs[0])):
+            for n, p in net.named_parameters():
+                grads[f"{tag}.{n}"] = p.grad.clone()
+        return float(loss), grads
+
+    loss_k, grads_k = step_grads(k_l1)
+    loss_p, grads_p = step_grads(p_l1)
+    worst = max(check_close(f"pre-training face step gradient {n}",
+                            grads_k[n], grads_p[n], GRAD_RTOL,
+                            GRAD_ATOL_FRAC) for n in grads_p)
+    log(f"  face motion step without D-SSIM, kernels vs plain autograd: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}; {len(grads_p)} gradient "
+        f"tensors within {worst:.3f} of the tolerance")
+    if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+        raise AssertionError("pre-training step: loss mismatch")
+    other = copy.deepcopy(pmfs[1].state_dict())
+    state, gopt, _ = k_step(state, gopt, 0, batch, 1, face_steps, flags)
+    if not all(torch.equal(v, other[k])
+               for k, v in pmfs[1].state_dict().items()):
+        raise AssertionError("a step moved the other identity's PMF")
+
+    # the EMA update on the card against the CPU
+    e_card = copy.deepcopy(ema)
+    ema_update(e_card, umf)
+    e_cpu = copy.deepcopy(ema).cpu()
+    ema_update(e_cpu, copy.deepcopy(umf).cpu())
+    ema_err = max(float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+                  for a, b in zip(e_card.state_dict().values(),
+                                  e_cpu.state_dict().values()))
+    log(f"  EMA update on the card vs the CPU: within {ema_err:.2e} "
+        f"(tolerance {EMA_TOL}); other identity's PMF bit-unchanged by a "
+        f"step")
+    if not ema_err <= EMA_TOL:
+        raise AssertionError("EMA update: card and CPU differ")
+
+    # each step alone on the final states, and one profiled motion step
+    warm_f = P.make_warm_step(face["cfg"], oc, extent, False, dev)
+    mbatch = build_frame_batch(load_frames(os.path.join(root, PRE_IDS[0]),
+                                           "train", device=dev), device=dev)
+    m_state, m_gopt = mouth["states"][0], mouth["gopts"][0]
+    m_step = P.make_pretrain_mouth_step(
+        mouth["cfg"], ocm, copy.deepcopy(mouth["umf_net"]),
+        [copy.deepcopy(p) for p in mouth["pmf_nets"]],
+        copy.deepcopy(mouth["ema_net"]), face["states"],
+        copy.deepcopy(face["ema_net"]), extent, *sched, device=dev)
+    warm_m = P.make_warm_step(mouth["cfg"], ocm, extent, True, dev)
+    carry = {"face": [state, gopt], "mouth": [m_state, m_gopt]}
+
+    def face_warm():
+        carry["face"][:2] = warm_f(*carry["face"], batch, [1], [1])[:2]
+
+    def face_motion():
+        carry["face"][:2] = k_step(*carry["face"], 0, batch, 1, face_steps,
+                                   flags)[:2]
+
+    def mouth_warm():
+        carry["mouth"][:2] = warm_m(*carry["mouth"], mbatch, [1], [1])[:2]
+
+    def mouth_motion():
+        carry["mouth"][:2] = m_step(*carry["mouth"], 0, 1, mbatch, 1,
+                                    mouth_steps, flags)[:2]
+
+    step_ms = {name: host_ms(fn, reps=10) for name, fn in (
+        ("face warm-up", face_warm), ("face motion", face_motion),
+        ("mouth warm-up", mouth_warm), ("mouth motion", mouth_motion))}
+    log(f"[{card}] pre-training steps alone on the final states (median of "
+        f"10, host clock around synchronize): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in step_ms.items()))
+    for name, fn in (("face", face_motion), ("mouth", mouth_motion)):
+        prof = profile_runs(fn)
+        log(f"[{card}] profiled {name} motion step: {prof['wall_ms']:.3f} "
+            f"ms wall under the profiler, {prof['device_ms']:.3f} ms of "
+            f"device kernels ({prof['device_ms'] / prof['wall_ms']:.1%} "
+            f"busy), {prof['launches']:.0f} kernel launches")
+        for kname, count, ms in prof["kernels"]:
+            log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+
+    # the chain's CLI as a user runs it, then train_face from its EMA
+    run = os.path.join(tmp.name, "pretrain")
+    cmd = [sys.executable, "-m", "instag_torch.cli.pretrain", "-s", root,
+           "-m", run, "--iterations", str(PRE_CLI_ITERS), "--init_num",
+           str(PRE_FACE_INIT), "--mouth_init_num", str(PRE_MOUTH_INIT),
+           "--device", dev.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    for line in (lines[-20:] if proc.returncode else
+                 [x for x in lines if x.startswith("[pretrain]")]):
+        log(f"  pretrain | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.pretrain exited {proc.returncode}")
+    for key, fname in PRE_BUNDLES.items():
+        if _key_paths(load_bundle(os.path.join(run, fname))) \
+                != want_keys[key]:
+            raise AssertionError(f"{fname}: key paths differ from "
+                                 f"{BUNDLE_KEYS}")
+    log(f"[{card}] cli.pretrain ({PRE_CLI_ITERS} face and "
+        f"{PRE_CLI_ITERS} mouth steps an identity): exit 0 in {cli_s:.2f} s "
+        f"wall as a process; bundle keys equal {BUNDLE_KEYS}")
+
+    ema_path = os.path.join(run, "chkpnt_ema_face_latest.pkl")
+    started = {}
+    real = train_face_cli.train_face
+
+    def train_face(*args, umf_net=None, **kw):
+        started.update({k: v.clone() for k, v in
+                        umf_net.state_dict().items()})
+        return real(*args, umf_net=umf_net, **kw)
+
+    train_face_cli.train_face = train_face
+    try:
+        res, _, tf_s, tf_n = _in_process(train_face_cli.main, [
+            "-s", os.path.join(root, PRE_IDS[0]), "--iterations",
+            str(PRE_ADAPT_STEPS), "--pretrain_path", ema_path,
+            "--device", dev.type])
+    finally:
+        train_face_cli.train_face = real
+    want = load_motion_net(MotionNetwork(),
+                           load_bundle(ema_path)["ema_params"], dev)
+    if not all(torch.equal(started[k], v)
+               for k, v in want.state_dict().items()):
+        raise AssertionError("train_face did not start from the EMA")
+    if not (np.isfinite(res["losses"]).all()
+            and all(v == PRE_ADAPT_STEPS for v in tf_n.values())):
+        raise AssertionError(f"train_face from the EMA: {tf_n}")
+    log(f"[{card}] cli.train_face --pretrain_path <EMA bundle>, "
+        f"{PRE_ADAPT_STEPS} steps in process: {tf_s:.2f} s wall, its UMF "
+        f"bit-equal to the EMA at the start, kernel launches {tf_n}")
+    tmp.cleanup()
+    return {"pretraining": loops, "pretraining_train_face": tf_n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
@@ -1843,6 +2166,9 @@ def main() -> int:
     clis = adaptation_clis(card, dev, clip["scene"], clip["tmp"].name)
     clip["tmp"].cleanup()
     later["adaptation_clis"] = clis["all"]
+
+    # ---- 14. multi-identity pre-training ------------------------------------
+    later.update(pretraining(card, dev))
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())

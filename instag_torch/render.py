@@ -24,7 +24,8 @@ import torch.nn.functional as Fn
 
 from .models.gaussians import GaussianState
 from .ops.rasterize import (Prepared, RasterizeConfig, RasterizeOutput,
-                            composite_prepared, prepare, sh_colors)
+                            composite_prepared, prepare, rasterize,
+                            sh_colors)
 from .utils.general import safe_normalize
 
 
@@ -53,6 +54,19 @@ def _masked_features(state: GaussianState) -> torch.Tensor:
     mask = _sh_degree_mask(state.active_sh_degree, state.max_sh_degree,
                            feats.device)
     return feats * mask[None, :, None]
+
+
+def render(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
+           bg: torch.Tensor,
+           means2d_offset: torch.Tensor | None = None) -> RasterizeOutput:
+    """Static render of the cloud, without deformation (pre-training's
+    warm-up)."""
+    return rasterize(
+        cfg, state.params.xyz, state.get_opacity(), state.get_scaling(),
+        state.get_rotation(), cam.view_transform, cam.full_proj_transform,
+        cam.camera_center, cam.tanfovx, cam.tanfovy, bg,
+        shs=_masked_features(state), sh_degree=state.max_sh_degree,
+        means2d_offset=means2d_offset, active=state.alive)
 
 
 class MotionRender(NamedTuple):

@@ -38,7 +38,10 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     two banded-matrix products. The variances are clamped at 0 and the
     covariance to +-sqrt(var1 var2 + 1e-12): the blur(x^2) - mu^2 form
     cancels in float32 for large values, and the SSIM ratio is unbounded
-    without the clamps."""
+    without the clamps. The clamps are ``maximum`` and ``minimum``, whose
+    gradient splits a tie in half, as JAX's does: over a flat region (a
+    render and a target painted green) a variance is exactly 0, where
+    ``clamp``'s gradient would pass whole."""
     c, h, w = img1.shape
     bw = _banded(w, window_size, 1.5, img1.device)
     bh = _banded(h, window_size, 1.5, img1.device)
@@ -50,11 +53,12 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     mu1 = blur(img1)
     mu2 = blur(img2)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = torch.clamp_min(blur(img1 * img1) - mu1_sq, 0.0)
-    sigma2_sq = torch.clamp_min(blur(img2 * img2) - mu2_sq, 0.0)
+    zero = torch.zeros((), dtype=img1.dtype, device=img1.device)
+    sigma1_sq = torch.maximum(blur(img1 * img1) - mu1_sq, zero)
+    sigma2_sq = torch.maximum(blur(img2 * img2) - mu2_sq, zero)
     sigma12 = blur(img1 * img2) - mu1_mu2
     bound = torch.sqrt(sigma1_sq * sigma2_sq + 1e-12)
-    sigma12 = torch.clamp(sigma12, -bound, bound)
+    sigma12 = torch.minimum(torch.maximum(sigma12, -bound), bound)
 
     c1, c2 = 0.01 ** 2, 0.03 ** 2
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (

@@ -56,12 +56,13 @@ def test_source_imports_nothing_of_jax(path):
 def test_cuda_device_without_gpu_raises(monkeypatch, tmp_path):
     from instag_torch import bench_utils
     from instag_torch.cli import synthesize_fuse
-    from instag_torch.config import ModelConfig
+    from instag_torch.config import ModelConfig, OptimizationConfig
     from instag_torch.data.dataset import load_frames
     from instag_torch.data.synthetic import generate_scene
     from instag_torch.io.checkpoints import load_gaussian_ply, state_from_dict
     from instag_torch.ops.rasterize import RasterizeConfig
     from instag_torch.synthesize import make_synthesis_fn, synthesize
+    from instag_torch.train.pretrain import pretrain_face
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -76,7 +77,9 @@ def test_cuda_device_without_gpu_raises(monkeypatch, tmp_path):
                  lambda: load_gaussian_ply(str(tmp_path / "a.ply"), 8),
                  lambda: synthesize(ModelConfig(), None),
                  lambda: synthesize_fuse.load_fuse_model(str(tmp_path)),
-                 lambda: synthesize_fuse.main(["-m", str(tmp_path)])):
+                 lambda: synthesize_fuse.main(["-m", str(tmp_path)]),
+                 lambda: pretrain_face(ModelConfig(), OptimizationConfig(),
+                                       ["a"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "scene").exists()
@@ -91,9 +94,11 @@ def test_approx_topk_is_refused():
 
 
 @pytest.mark.parametrize("name", ["train_face", "train_mouth",
-                                  "train_fuse_con", "adapt"])
+                                  "train_fuse_con", "adapt", "pretrain",
+                                  "pretrain_face", "pretrain_mouth"])
 def test_adaptation_clis_default_to_the_card(name, monkeypatch, tmp_path):
-    """Without ``--device cpu`` each adaptation CLI asks for the card, and
+    """Without ``--device cpu`` each adaptation or pre-training CLI asks
+    for the card, and
     raises before it reads or writes anything where there is none."""
     import importlib
 

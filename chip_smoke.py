@@ -112,6 +112,30 @@ Phases (any failure exits non-zero, and the result line is not printed):
      bundles' key paths equal to the JAX CLIs'; and ``cli.train_face
      --pretrain_path`` on its EMA bundle for 50 steps in process, from a
      UMF bit-equal to the EMA.
+ 15. static training and reference import at full width: a hard synthetic
+     identity (``data.synthetic_hard.generate_hard_scene``, 512x512, 16
+     train + 4 val frames) written on the card and read back (PNGs, torso
+     composites, masks, landmarks and au.csv equal to what the writer
+     held, JPEG frames above 40 dB); ``python -m instag_torch.train.static
+     --iterations 1200`` on it as a subprocess with ``ModelConfig()``'s
+     widths (10000 initial splats, capacity 160768, K=256, SH 2) and
+     ``OptimizationConfig``'s schedule (densification every 100 steps from
+     600, the SH bump at 1000): exit 0, a falling loss, a train-view PSNR
+     5 dB above the initial cloud's, a densification that changed the live
+     count, SH degree 1, one launch of each kernel a step; the CLI in
+     process for 20 steps, its ``point_cloud.ply`` reloaded equal to its
+     final state; on the subprocess's final cloud: 50 steps alone (one
+     launch of each kernel a step), one step's gradients through the
+     kernels against plain autograd (both fed the step loss's cotangent of
+     the image through the plain composite), a reference ``capture()``
+     with named Adam groups through ``torch.save`` and ``convert_capture``
+     on the card (its render bit-equal, its moments equal), densifications,
+     one profiled step and the three kernels at this shape (C=8, A=0)
+     against their plain versions, with times; the brute-force oracle
+     (``ops.reference_splat``, bbox_sigma 4) against the kernel path at
+     128x128 with 2000 splats at SH degree 1 under the JAX suite's bounds,
+     ``cov3d_precomp`` against scales and rotations (1e-5); and the AVE
+     mel encoder on the card against the CPU over a wav's crops (1e-4).
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -192,6 +216,19 @@ PRE_LOG_EVERY = 250
 PRE_CLI_ITERS = 40
 PRE_ADAPT_STEPS = 50
 EMA_TOL = 1e-6           # card vs CPU EMA update: rtol and atol
+# phase 15: static training and reference import
+STATIC_FRAMES, STATIC_VAL = 16, 4
+STATIC_ITERS = 1200       # the CLI's run (OptimizationConfig's schedule)
+STATIC_CLI_CHECK_ITERS = 20   # the in-process CLI run whose PLY is checked
+STATIC_STEPS_ALONE = 50   # steps timed alone on the final cloud
+STATIC_DENSIFY_TIMED = 3
+STATIC_PSNR_GAIN = 5.0    # dB over the initial cloud's train-view PSNR
+SCENE_WRITE_MAX_S = 60.0
+ORACLE_SIZE, ORACLE_SPLATS = 128, 2000
+# the JAX suite's oracle bounds (tests/test_rasterize.py)
+ORACLE_ATOL = {"image": 2e-3, "alpha": 2e-3, "depth": 2e-2, "normal": 5e-3}
+COV3D_ATOL = 1e-5
+AVE_TOL = 1e-4           # AVE encoder, card vs CPU, of the output's scale
 PRE_BUNDLES = {"pretrain_face": "chkpnt_face_latest.pkl",
                "pretrain_ema_face": "chkpnt_ema_face_latest.pkl",
                "pretrain_identity_face": "id_a_face_latest.pkl",
@@ -357,8 +394,8 @@ def fwd_check(label, feats, cnt, tiles_x, n_chan, n_aux):
 def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
                            n_aux):
     """The training shape's kernels (C=8) on one cloud's tile features:
-    the forward, the backward twice (bitwise equal) and, with aux rows, the
-    scatter-add of its dfeats, each against its plain version."""
+    the forward, the backward twice (bitwise equal) and the scatter-add of
+    its dfeats, each against its plain version."""
     from instag_torch.ops.composite import (composite_bwd,
                                             composite_bwd_plain,
                                             composite_fwd,
@@ -388,23 +425,23 @@ def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
         f"plain| {fwd_err:.2e}")
     case = dict(feats=feats, cnt=cnt, g=g, d_k=d_k, pairs=pairs,
                 fwd_err=fwd_err, bwd_err=float((d_k - d_p).abs().max()))
-    if n_aux:
-        acc_k = scatter_add_tiles(d_k, ids, cnt, n_splats)
-        acc_p = scatter_add_tiles_plain(d_k, ids, cnt, n_splats)
-        torch.cuda.synchronize()
-        check_close(f"{label} scatter_add", acc_k, acc_p, SCATTER_TOL,
-                    SCATTER_TOL)
-        case["scatter_err"] = float((acc_k - acc_p).abs().max())
-        log(f"{label} kernel scatter_add F={d_k.shape[0]} N={n_splats} "
-            f"valid slots {int(cnt.sum())}: max |kernel - plain| / row max "
-            f"per row {[f'{e:.1e}' for e in rel_err_rows(acc_k, acc_p)]}")
+    acc_k = scatter_add_tiles(d_k, ids, cnt, n_splats)
+    acc_p = scatter_add_tiles_plain(d_k, ids, cnt, n_splats)
+    torch.cuda.synchronize()
+    check_close(f"{label} scatter_add", acc_k, acc_p, SCATTER_TOL,
+                SCATTER_TOL)
+    case["scatter_err"] = float((acc_k - acc_p).abs().max())
+    log(f"{label} kernel scatter_add F={d_k.shape[0]} N={n_splats} "
+        f"valid slots {int(cnt.sum())}: max |kernel - plain| / row max "
+        f"per row {[f'{e:.1e}' for e in rel_err_rows(acc_k, acc_p)]}")
     return case
 
 
-def time_training_kernels(label, card, case, ids, valid, n_splats, tiles_x):
+def time_training_kernels(label, card, case, ids, valid, n_splats, tiles_x,
+                          n_aux=2):
     """CUDA-event times of the three kernels on one cloud's training-shape
-    inputs (C=8, A=2), each beside its bound, its plain version and, for
-    the scatter, ``index_add_`` on the pre-masked columns."""
+    inputs (C=8, A=``n_aux``), each beside its bound, its plain version
+    and, for the scatter, ``index_add_`` on the pre-masked columns."""
     from instag_torch.ops.composite import (composite_bwd,
                                             composite_bwd_plain,
                                             composite_fwd,
@@ -416,25 +453,27 @@ def time_training_kernels(label, card, case, ids, valid, n_splats, tiles_x):
                                  ("feats", "cnt", "g", "d_k", "pairs"))
     T, K = feats.shape[1:]
     res = {}
-    f_ms = cuda_ms(lambda: composite_fwd(feats, cnt, tiles_x, 8, 2))
-    fp_ms = cuda_ms(lambda: composite_fwd_plain(feats, cnt, tiles_x, 8, 2),
+    f_ms = cuda_ms(lambda: composite_fwd(feats, cnt, tiles_x, 8, n_aux))
+    fp_ms = cuda_ms(lambda: composite_fwd_plain(feats, cnt, tiles_x, 8,
+                                                n_aux),
                     reps=2, rounds=5, warmup=1)
-    f_bound, f_by = kernel_bound(feats, cnt, 8, 2, pairs)
+    f_bound, f_by = kernel_bound(feats, cnt, 8, n_aux, pairs)
     res["composite_fwd"] = dict(ms=f_ms, plain_ms=fp_ms, bound_ms=f_bound,
                                 bound_by=f_by, library_ms=None,
                                 max_abs_err=case["fwd_err"])
-    log(f"[{card}] {label} composite_fwd C=8 A=2 T={T} K={K}: kernel "
+    log(f"[{card}] {label} composite_fwd C=8 A={n_aux} T={T} K={K}: kernel "
         f"{f_ms:.4f} ms, plain {fp_ms:.3f} ms, bound {f_bound:.4f} ms "
         f"({f_by}), kernel at {f_bound / f_ms:.1%} of bound")
 
-    b_ms = cuda_ms(lambda: composite_bwd(feats, cnt, g, tiles_x, 8, 2))
-    bp_ms = cuda_ms(lambda: composite_bwd_plain(feats, cnt, g, tiles_x, 8, 2),
+    b_ms = cuda_ms(lambda: composite_bwd(feats, cnt, g, tiles_x, 8, n_aux))
+    bp_ms = cuda_ms(lambda: composite_bwd_plain(feats, cnt, g, tiles_x, 8,
+                                                n_aux),
                     reps=2, rounds=5, warmup=1)
-    b_bound, b_by, b_parts = bwd_bound(feats, cnt, 8, 2, pairs)
+    b_bound, b_by, b_parts = bwd_bound(feats, cnt, 8, n_aux, pairs)
     res["composite_bwd"] = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=b_bound,
                                 bound_by=b_by, library_ms=None,
                                 max_abs_err=case["bwd_err"])
-    log(f"[{card}] {label} composite_bwd C=8 A=2 T={T} K={K}: kernel "
+    log(f"[{card}] {label} composite_bwd C=8 A={n_aux} T={T} K={K}: kernel "
         f"{b_ms:.4f} ms, plain {bp_ms:.3f} ms, bound {b_bound:.4f} ms "
         f"({b_by}), kernel at {b_bound / b_ms:.1%} of bound; no single "
         f"PyTorch call computes it")
@@ -1066,33 +1105,11 @@ def _clip(cfg, model, batch, dev, select_every=1, select_auto=0.0):
     return torch.cat(imgs)[:nf].cpu().numpy()
 
 
-def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
-    """Phase 12: a 512x512 scene written and read on the card, phase 11's
-    fusion result through a fuse bundle, and the clip through the
-    ``synthesize_fuse`` CLI and in process in all three selection modes.
-    Returns composite_fwd's launches in the exact in-process clip."""
-    import tempfile
-
-    from instag_torch.cli import synthesize_fuse as cli
-    from instag_torch.config import ModelConfig, save_cfg
-    from instag_torch.data import dataset as D
-    from instag_torch.data import image_io
-    from instag_torch.data import synthetic
-    from instag_torch.io.checkpoints import (flax_params, load_bundle,
-                                             save_bundle, state_to_dict)
-    from instag_torch.ops.rasterize import RasterizeConfig
-    from instag_torch.synthesize import (DISPATCH_CHUNK, make_synthesis_fn,
-                                         synthesize)
-    from instag_torch.train.common import build_frame_batch
-
-    fixture = jpeg_fixture_check(card, dev)
-    tmp = tempfile.TemporaryDirectory()
-    scene = os.path.join(tmp.name, "scene")
-    model_dir = os.path.join(tmp.name, "model")
-
-    # the scene, its images recorded as the writer holds them
-    held = {}
-    write_png, write_jpeg = synthetic.write_png, synthetic.write_jpeg
+@contextlib.contextmanager
+def _held_writes(module, held: dict):
+    """Record, by path, every image ``module`` writes through its
+    ``write_png`` and ``write_jpeg`` as the writer holds it."""
+    write_png, write_jpeg = module.write_png, module.write_jpeg
 
     def rec_png(path, img):
         held[path] = np.array(img)
@@ -1102,20 +1119,21 @@ def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
         held[path] = img.cpu().numpy()
         write_jpeg(path, img, **kw)
 
-    synthetic.write_png, synthetic.write_jpeg = rec_png, rec_jpeg
+    module.write_png, module.write_jpeg = rec_png, rec_jpeg
     try:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        synthetic.generate_scene(scene, n_frames=CLIP_TRAIN, size=SIZE,
-                                 n_val=CLIP_VAL, device=dev)
-        gen_s = time.perf_counter() - t
+        yield held
     finally:
-        synthetic.write_png, synthetic.write_jpeg = write_png, write_jpeg
-    log(f"[{card}] scene: {SIZE}x{SIZE}, {CLIP_TRAIN} train + {CLIP_VAL} val "
-        f"frames written in {gen_s:.2f} s (JPEG by nvJPEG at q95, bc.jpg at "
-        f"q75)")
+        module.write_png, module.write_jpeg = write_png, write_jpeg
 
-    # every frame read back on the card
+
+def scene_readback(dev: torch.device, scene: str, held: dict):
+    """Both splits of a written scene read on the card (the reader's memo
+    cleared) and held to what the writer held: the torso PNGs, the torso
+    composites over bc.jpg, the parsing masks and au.csv equal, the JPEG
+    frames' PSNRs returned. Returns ({split: read s}, [PSNR dB])."""
+    from instag_torch.data import dataset as D
+    from instag_torch.data import image_io
+
     load_s, psnrs = {}, []
     for split in ("train", "val"):
         D._FRAMES_CACHE.clear()
@@ -1159,6 +1177,46 @@ def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
                                   [r[j] for r in rows[1:]])
                    for j, c in enumerate(rows[0])):
             raise AssertionError("au.csv values do not round-trip")
+    return load_s, psnrs
+
+
+def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
+    """Phase 12: a 512x512 scene written and read on the card, phase 11's
+    fusion result through a fuse bundle, and the clip through the
+    ``synthesize_fuse`` CLI and in process in all three selection modes.
+    Returns composite_fwd's launches in the exact in-process clip."""
+    import tempfile
+
+    from instag_torch.cli import synthesize_fuse as cli
+    from instag_torch.config import ModelConfig, save_cfg
+    from instag_torch.data import dataset as D
+    from instag_torch.data import synthetic
+    from instag_torch.io.checkpoints import (flax_params, load_bundle,
+                                             save_bundle, state_to_dict)
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.synthesize import (DISPATCH_CHUNK, make_synthesis_fn,
+                                         synthesize)
+    from instag_torch.train.common import build_frame_batch
+
+    fixture = jpeg_fixture_check(card, dev)
+    tmp = tempfile.TemporaryDirectory()
+    scene = os.path.join(tmp.name, "scene")
+    model_dir = os.path.join(tmp.name, "model")
+
+    # the scene, its images recorded as the writer holds them
+    held = {}
+    with _held_writes(synthetic, held):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        synthetic.generate_scene(scene, n_frames=CLIP_TRAIN, size=SIZE,
+                                 n_val=CLIP_VAL, device=dev)
+        gen_s = time.perf_counter() - t
+    log(f"[{card}] scene: {SIZE}x{SIZE}, {CLIP_TRAIN} train + {CLIP_VAL} val "
+        f"frames written in {gen_s:.2f} s (JPEG by nvJPEG at q95, bc.jpg at "
+        f"q75)")
+
+    # every frame read back on the card
+    load_s, psnrs = scene_readback(dev, scene, held)
     log(f"[{card}] load_frames: train {load_s['train']:.3f} s, val "
         f"{load_s['val']:.3f} s (memo cleared; nvJPEG decode, PNG in "
         f"numpy); PNGs, torso composites and masks equal what the writer "
@@ -1837,6 +1895,425 @@ def pretraining(card: str, dev: torch.device) -> dict:
     return {"pretraining": loops, "pretraining_train_face": tf_n}
 
 
+def _speech_wav(path: str, seconds: float = 2.0, sr: int = 16000) -> None:
+    """A 16-bit wav of two formant-like tones under a syllable envelope,
+    with noise from a seed."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(seconds * sr)) / sr
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t) ** 2
+    sig = env * (0.5 * np.sin(2 * np.pi * 220 * t)
+                 + 0.3 * np.sin(2 * np.pi * 1250 * t))
+    sig += 0.05 * np.random.default_rng(0).normal(size=t.shape)
+    wavfile.write(path, sr, (0.9 * sig / np.abs(sig).max() * 32767
+                             ).astype(np.int16))
+
+
+def _oracle_scene(dev: torch.device):
+    """ORACLE_SPLATS splats at SH degree 1 over most of a 128x128 frame,
+    small enough that no tile holds more than K of them, and its camera.
+    Their opacities stay below 0.35: the tiled path composites a splat
+    only in the tiles its 3-sigma square touches (as the reference's
+    rasterizer does), while the oracle sweeps its 4-sigma box, and above
+    that opacity the alpha at 3 sigma, 0.0111 times the opacity, passes
+    the 1/255 floor, so the two would differ at pixels between the two
+    boxes."""
+    from instag_torch.utils.graphics import projection_matrix, world_to_view
+
+    rng = np.random.default_rng(5)
+    n = ORACLE_SPLATS
+    arrays = [
+        rng.uniform(-1, 1, (n, 3)) * np.array([0.7, 0.7, 0.4]),   # means
+        rng.uniform(0.05, 0.35, (n, 1)),                           # opacity
+        0.01 + 0.02 * rng.uniform(size=(n, 3)),                    # scales
+        rng.normal(size=(n, 4)),                                   # rotations
+        0.3 * rng.normal(size=(n, 4, 3))]                          # SH
+    w2c = world_to_view(np.eye(3), np.array([0.0, 0.0, 2.0]))
+    proj = projection_matrix(0.01, 100.0, 0.7, 0.7)
+    arrays += [w2c.T, (proj @ w2c).T, np.linalg.inv(w2c)[:3, 3]]
+    return ([torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+             for a in arrays], float(np.tan(0.35)))
+
+
+def static_training(card: str, dev: torch.device) -> dict:
+    """Phase 15: a hard synthetic identity written and read on the card,
+    ``python -m instag_torch.train.static`` on it at full width, the
+    kernels against plain on its final cloud, the brute-force oracle and
+    ``cov3d_precomp``, a reference checkpoint imported, and the AVE
+    encoder. Returns each kernel's launches on the phase's main path (the
+    CLI as a process and in process)."""
+    import ast
+    import tempfile
+
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data import synthetic_hard
+    from instag_torch.data.audio import AudioWindows, load_wav
+    from instag_torch.data.dataset import (load_frames, random_init_points,
+                                           scene_extent)
+    from instag_torch.io.checkpoints import (gopt_from_dict,
+                                             load_gaussian_ply,
+                                             state_from_dict)
+    from instag_torch.io.reference_convert import convert_capture
+    from instag_torch.models import gaussians as G
+    from instag_torch.models.nets import AudioEncoder
+    from instag_torch.ops.rasterize import (RasterizeConfig, prepare,
+                                            rasterize, sh_colors,
+                                            tile_features)
+    from instag_torch.ops.reference_splat import splat_reference
+    from instag_torch.render import _masked_features, render
+    from instag_torch.train import static as S
+    from instag_torch.train.common import (build_frame_batch,
+                                           gaussian_backward, rgb_loss)
+    from instag_torch.utils.general import quat_to_rotmat, safe_normalize
+
+    mc, oc = ModelConfig(), OptimizationConfig(iterations=STATIC_ITERS)
+    capacity = mc.resolve_capacity()
+    tmp = tempfile.TemporaryDirectory()
+    scene = os.path.join(tmp.name, "hard")
+
+    # the scene, its images and landmarks recorded as the writer holds them
+    held, lms = {}, []
+    landmarks = synthetic_hard._landmarks
+
+    def rec_landmarks(*args):
+        lms.append(landmarks(*args))
+        return lms[-1]
+
+    synthetic_hard._landmarks = rec_landmarks
+    try:
+        with _held_writes(synthetic_hard, held):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            synthetic_hard.generate_hard_scene(
+                scene, n_frames=STATIC_FRAMES, size=SIZE, n_val=STATIC_VAL,
+                device=dev)
+            write_s = time.perf_counter() - t
+    finally:
+        synthetic_hard._landmarks = landmarks
+    load_s, psnrs = scene_readback(dev, scene, held)
+    for i, want in enumerate(lms):
+        got = np.loadtxt(os.path.join(scene, "ori_imgs", f"{i}.lms"))
+        if not np.array_equal(got, [[float(f"{v:.2f}") for v in row]
+                                    for row in want]):
+            raise AssertionError(f"landmarks {i} differ from what the "
+                                 "writer held")
+    log(f"[{card}] hard scene: {SIZE}x{SIZE}, {STATIC_FRAMES} train + "
+        f"{STATIC_VAL} val frames written in {write_s:.2f} s (ray-traced "
+        f"on the host at 2x supersampling, JPEG by nvJPEG), read in "
+        f"{load_s['train']:.3f} + {load_s['val']:.3f} s; PNGs, torso "
+        f"composites, masks, landmarks and au.csv equal what the writer "
+        f"held; JPEG frames PSNR min {min(psnrs):.2f} dB, mean "
+        f"{np.mean(psnrs):.2f} dB (bound {JPEG_PSNR_MIN} dB)")
+    if not min(psnrs) >= JPEG_PSNR_MIN:
+        raise AssertionError(f"JPEG frames at {min(psnrs):.2f} dB")
+    if write_s > SCENE_WRITE_MAX_S:
+        log(f"  the hard scene took over {SCENE_WRITE_MAX_S} s to write")
+
+    # the initial cloud's train-view PSNR, as the trainer starts it
+    records = load_frames(scene, "train", device=dev)
+    batch = build_frame_batch(records, device=dev)
+    _, extent = scene_extent(records)
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=mc.max_per_tile)
+    xyz, colors = random_init_points(mc.init_num)
+    state0 = G.create_from_points(torch.from_numpy(xyz).to(dev),
+                                  torch.from_numpy(colors).to(dev), capacity,
+                                  mc.sh_degree, extent)
+    psnr0 = S.train_view_psnr(cfg, state0, batch)
+
+    # the CLI as a user runs it
+    run = os.path.join(tmp.name, "static")
+    cmd = [sys.executable, "-m", "instag_torch.train.static",
+           "--source_path", scene, "--model_path", run, "--iterations",
+           str(STATIC_ITERS), "--device", dev.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    for line in (lines[-20:] if proc.returncode else lines):
+        log(f"  static | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"train.static exited {proc.returncode}")
+    res = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    points = [int(x.split("points=")[1].split()[0]) for x in lines
+              if x.startswith("[") and "points=" in x]
+    log(f"[{card}] train.static {STATIC_ITERS} steps at {SIZE}x{SIZE}, "
+        f"capacity {capacity}, K={mc.max_per_tile}: exit 0 in {cli_s:.2f} s "
+        f"wall as a process; its loop {res['train_time_s']:.2f} s, "
+        f"{res['train_time_s'] * 1e3 / STATIC_ITERS:.2f} ms per step "
+        f"(densifications included, host clock, read at the end); loss "
+        f"{res['initial_loss']:.5f} (first 50) -> {res['final_loss']:.5f} "
+        f"(last 50); live splats at the log points {points}; train-view "
+        f"PSNR {psnr0:.2f} dB (initial cloud) -> {res['train_psnr']:.2f} dB; "
+        f"SH degree {res['sh_degree']}; kernel launches "
+        f"{res['kernel_launches']}")
+    if not (np.isfinite(res["initial_loss"])
+            and np.isfinite(res["final_loss"])
+            and res["final_loss"] < res["initial_loss"]):
+        raise AssertionError("train.static: the loss did not fall")
+    if not res["train_psnr"] >= psnr0 + STATIC_PSNR_GAIN:
+        raise AssertionError(f"train.static: PSNR {res['train_psnr']:.2f} "
+                             f"dB, not {STATIC_PSNR_GAIN} dB above the "
+                             f"initial {psnr0:.2f} dB")
+    before = points[(oc.densify_from_iter // 200) - 1]
+    if not any(p != before for p in points[oc.densify_from_iter // 200:]):
+        raise AssertionError("no densification changed the live count")
+    if res["sh_degree"] != 1:
+        raise AssertionError(f"SH degree {res['sh_degree']} at the end")
+    if any(v != STATIC_ITERS for v in res["kernel_launches"].values()):
+        raise AssertionError("expected one launch of each kernel a step: "
+                             f"{res['kernel_launches']}")
+    launches = dict(res["kernel_launches"])
+
+    # the CLI in process: its PLY equals its final state
+    run2 = os.path.join(tmp.name, "static_in_process")
+    (st2, _, res2), _, in_s, n2 = _in_process(S.main, [
+        "--source_path", scene, "--model_path", run2, "--iterations",
+        str(STATIC_CLI_CHECK_ITERS), "--device", dev.type])
+    ply2 = load_gaussian_ply(os.path.join(run2, "point_cloud.ply"), capacity,
+                             st2.max_sh_degree, dev)
+    n = int(st2.num_alive())
+    for f in G.PARAM_FIELDS:
+        if f != "identity" and not torch.equal(
+                getattr(ply2.params, f)[:n], getattr(st2.params, f)[st2.alive]):
+            raise AssertionError(f"point_cloud.ply {f} differs from the state")
+    if any(v != STATIC_CLI_CHECK_ITERS
+           for v in res2["kernel_launches"].values()):
+        raise AssertionError(f"in-process CLI: {res2['kernel_launches']}")
+    launches = {k: launches[k] + n2[k] for k in launches}
+    log(f"[{card}] train.static in process, {STATIC_CLI_CHECK_ITERS} steps: "
+        f"{in_s:.2f} s; its point_cloud.ply ({n} splats) reloaded equal to "
+        f"its final state; kernel launches {n2}")
+
+    # the CLI's final cloud, from its PLY, at SH degree 1 as it ended
+    state = load_gaussian_ply(os.path.join(run, "point_cloud.ply"), capacity,
+                              mc.sh_degree, dev).replace(active_sh_degree=1)
+    n_live = int(state.num_alive())
+    step = S.make_train_step(cfg, oc, extent)
+    gopt = G.adam_init(state.params)
+    rng = np.random.default_rng(1)
+    frames = [int(rng.integers(batch.num_frames))
+              for _ in range(STATIC_STEPS_ALONE)]
+    fns = kernel_fns()
+    for f in fns:
+        f.launches = 0
+    times = []
+    for k, i in enumerate(frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, gopt, loss = step(state, gopt, batch, i, STATIC_ITERS + 1 + k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    alone = {f.__name__: f.launches for f in fns}
+    if any(v != STATIC_STEPS_ALONE for v in alone.values()):
+        raise AssertionError(f"steps alone: {alone}")
+    launches = {k: launches[k] + alone[k] for k in launches}
+    step_ms = statistics.median(times[5:])
+    log(f"[{card}] static step alone on the final cloud ({n_live} live of "
+        f"{capacity}): median {step_ms:.3f} ms over {len(times) - 5} steps "
+        f"(min {min(times[5:]):.3f}, max {max(times[5:]):.3f}; host clock "
+        f"around synchronize), loss {float(loss):.5f}")
+
+    # one step's gradients through the kernels against plain autograd, both
+    # fed one cotangent: the step loss's gradient with respect to the
+    # composited image, taken through the plain composite. On a fitted
+    # cloud many residuals are within the two composites' rounding of 0,
+    # where L1's gradient may take opposite signs; fed their own
+    # cotangents the two paths then differ by up to 6.5x the tolerance on
+    # 3 of 8 views, with D-SSIM or without it (measured on one H100 with
+    # scripts/probe_static_parity.py; PERF.md).
+    plain_cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=mc.max_per_tile,
+                                backend="plain")
+    cam0, gt0, bg0 = batch.camera(0), batch.gt_image(0), batch.bg_image(0)
+    with torch.no_grad():
+        loss_k, loss_p = (float(S.step_loss(c, oc, batch, 0)(
+            state, torch.zeros((capacity, 2), device=dev))[0])
+            for c in (cfg, plain_cfg))
+        out_p = render(plain_cfg, cam0, state, torch.zeros(3, device=dev))
+    img_p = (out_p.image + bg0 * (1.0 - out_p.alpha)).requires_grad_(True)
+    cot, = torch.autograd.grad(rgb_loss(img_p, gt0, oc.lambda_dssim), img_p)
+
+    def grads(c):
+        def fn(st, off):
+            out = render(c, cam0, st, torch.zeros(3, device=dev),
+                         means2d_offset=off)
+            return ((out.image + bg0 * (1.0 - out.alpha)) * cot).sum(), out
+        _, _, g, g_off = gaussian_backward(fn, state, ())
+        out = {f: getattr(g, f) for f in G.PARAM_FIELDS}
+        out["means2d_offset"] = g_off
+        return out
+
+    g_k, g_p = grads(cfg), grads(plain_cfg)
+    worst = max(check_close(f"static step gradient {k}", g_k[k], g_p[k],
+                            GRAD_RTOL, GRAD_ATOL_FRAC) for k in g_p)
+    log(f"  static step, kernels vs plain autograd: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f}; with one cotangent, {len(g_p)} gradient tensors "
+        f"within {worst:.3f} of the tolerance")
+    if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+        raise AssertionError("static step: loss mismatch")
+
+    # a reference checkpoint of this cloud and its Adam state, imported
+    alive = state.alive
+    names = {"xyz": "xyz", "f_dc": "features_dc", "f_rest": "features_rest",
+             "identity": "identity", "scaling": "scaling",
+             "rotation": "rotation", "opacity": "opacity"}
+    opt_sd = {"state": {}, "param_groups": []}
+    for pid, (ref_name, f) in enumerate(names.items()):
+        opt_sd["state"][pid] = {
+            "step": torch.tensor(float(gopt.step)),
+            "exp_avg": getattr(gopt.mu, f)[alive],
+            "exp_avg_sq": getattr(gopt.nu, f)[alive]}
+        opt_sd["param_groups"].append({"name": ref_name, "params": [pid]})
+    capture = (state.active_sh_degree,
+               *(getattr(state.params, f)[alive] for f in names.values()),
+               state.max_radii2d[alive], state.xyz_grad_accum[alive, None],
+               state.denom[alive, None], opt_sd, state.spatial_lr_scale,
+               None, None)
+    pth = os.path.join(tmp.name, "reference_capture.pth")
+    torch.save(capture, pth)
+    t = time.perf_counter()
+    conv = convert_capture(torch.load(pth, map_location=dev,
+                                      weights_only=False),
+                           capacity, mc.audio_extractor, "face")
+    imported = state_from_dict(conv["state"], dev)
+    i_gopt = gopt_from_dict(conv["gopt"], dev)
+    import_s = time.perf_counter() - t
+    zero = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        img_src = render(cfg, batch.camera(0), state, zero).image
+        img_imp = render(cfg, batch.camera(0), imported, zero).image
+    if not torch.equal(img_src, img_imp):
+        raise AssertionError("the imported cloud renders differently")
+    for f in G.PARAM_FIELDS:
+        if not (torch.equal(getattr(i_gopt.mu, f)[:n_live],
+                            getattr(gopt.mu, f)[alive])
+                and torch.equal(getattr(i_gopt.nu, f)[:n_live],
+                                getattr(gopt.nu, f)[alive])):
+            raise AssertionError(f"imported Adam moments of {f} differ")
+    if i_gopt.step != gopt.step:
+        raise AssertionError("imported Adam step differs")
+    log(f"[{card}] reference capture() of the final cloud ({n_live} splats, "
+        f"named Adam groups) through torch.save, convert_capture on the "
+        f"card, state_from_dict and gopt_from_dict in {import_s:.2f} s: its "
+        f"render bit-equal to the source's, the moments equal")
+
+    # densifications on the final cloud, its statistics from the steps
+    gen = torch.Generator(dev).manual_seed(0)
+    for k in range(STATIC_DENSIFY_TIMED):
+        noise = torch.randn((2, capacity, 3), generator=gen, device=dev)
+        before = int(state.num_alive())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, gopt = S.densify_step(state, gopt, noise, False,
+                                     oc.densify_grad_threshold, 0.005,
+                                     extent, oc.percent_dense)
+        torch.cuda.synchronize()
+        log(f"[{card}] densify_and_prune on the final cloud: "
+            f"{(time.perf_counter() - t) * 1e3:.2f} ms, live {before} -> "
+            f"{int(state.num_alive())}")
+        state, gopt, _ = step(state, gopt, batch, frames[k], STATIC_ITERS)
+
+    prof = profile_runs(lambda: step(state, gopt, batch, 0, STATIC_ITERS))
+    log(f"[{card}] profiled static step: {prof['wall_ms']:.3f} ms wall "
+        f"under the profiler, {prof['device_ms']:.3f} ms of device kernels "
+        f"({prof['device_ms'] / prof['wall_ms']:.1%} busy), "
+        f"{prof['launches']:.0f} kernel launches")
+    for kname, count, ms in prof["kernels"]:
+        log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+    for op, count, ms in prof["host"]:
+        log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
+
+    # the three kernels at this cloud's step shape (C=8, A=0)
+    cam = batch.camera(0)
+    with torch.no_grad():
+        prep = prepare(cfg, state.params.xyz, state.get_scaling(),
+                       state.get_rotation(), cam.view_transform,
+                       cam.full_proj_transform, cam.camera_center,
+                       cam.tanfovx, cam.tanfovy, active=state.alive)
+        colors = sh_colors(state.params.xyz, cam.camera_center,
+                           _masked_features(state), state.max_sh_degree)
+        opac = state.get_opacity().reshape(-1)
+        feats, cnt = tile_features(prep.px, prep.py, prep.proj, opac, colors,
+                                   torch.ones_like(opac), prep.ids,
+                                   prep.valid)
+        g = torch.randn((feats.shape[1], 10, 256), device=dev,
+                        generator=torch.Generator(dev).manual_seed(13))
+        ids = prep.ids.contiguous()
+        case = training_kernel_checks("static cloud", feats, cnt, g, ids,
+                                      capacity, cfg.tiles_x, 0)
+        timed = time_training_kernels("static cloud", card, case, ids,
+                                      prep.valid, capacity, cfg.tiles_x,
+                                      n_aux=0)
+
+    # the brute-force oracle on the card against the kernel-backed path,
+    # and cov3d_precomp against scales and rotations
+    (means, op, scales, rots, shs, view, full, campos), tanfov = \
+        _oracle_scene(dev)
+    o_cfg = RasterizeConfig(ORACLE_SIZE, ORACLE_SIZE, max_per_tile=256)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    args = (o_cfg, means, op, scales, rots, view, full, campos, tanfov,
+            tanfov, bg)
+    with torch.no_grad():
+        out = rasterize(*args, shs=shs, sh_degree=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref = splat_reference(*args, shs=shs, sh_degree=1, bbox_sigma=4.0)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t
+        errs = {k: float((o.double() - r).abs().max()) for k, o, r in (
+            ("image", out.image, ref[0]), ("depth", out.depth, ref[1]),
+            ("normal", out.normal, ref[2]), ("alpha", out.alpha, ref[3]))}
+        R = quat_to_rotmat(safe_normalize(rots)).double()
+        sig = torch.einsum("nij,nj,nkj->nik", R, scales.double() ** 2, R)
+        cov6 = torch.stack([sig[:, 0, 0], sig[:, 0, 1], sig[:, 0, 2],
+                            sig[:, 1, 1], sig[:, 1, 2], sig[:, 2, 2]],
+                           1).float()
+        out_cv = rasterize(*args, shs=shs, sh_degree=1, cov3d_precomp=cov6)
+        cov_err = float((out_cv.image - out.image).abs().max())
+    log(f"[{card}] oracle ({ORACLE_SPLATS} splats, SH 1, "
+        f"{ORACLE_SIZE}x{ORACLE_SIZE}, bbox_sigma 4, float64 on the card, "
+        f"{oracle_s:.2f} s) against the kernel path: max |diff| "
+        + ", ".join(f"{k} {v:.2e} (bound {ORACLE_ATOL[k]})"
+                    for k, v in errs.items())
+        + f"; cov3d_precomp against scales/rotations: image {cov_err:.2e} "
+        f"(bound {COV3D_ATOL}), radii equal "
+        f"{torch.equal(out_cv.radii, out.radii)}")
+    if not all(errs[k] <= ORACLE_ATOL[k] for k in errs):
+        raise AssertionError("the kernel path disagrees with the oracle")
+    if not (cov_err <= COV3D_ATOL and torch.equal(out_cv.radii, out.radii)):
+        raise AssertionError("cov3d_precomp disagrees")
+
+    # the AVE encoder on the card against the CPU over a wav's crops
+    wav = os.path.join(tmp.name, "speech.wav")
+    _speech_wav(wav)
+    windows = AudioWindows(load_wav(wav))
+    mel = torch.from_numpy(np.stack([windows[i]
+                                     for i in range(len(windows))]))
+    gen = torch.Generator().manual_seed(3)
+    enc = AudioEncoder()
+    with torch.no_grad():
+        for name, t_ in enc.state_dict().items():
+            if name.endswith("conv.weight"):      # variance 2 / fan-in
+                t_.copy_(torch.randn(t_.shape, generator=gen)
+                         * (2.0 / t_[0].numel()) ** 0.5)
+            elif name.endswith(("bn.weight", "running_var")):
+                t_.copy_(0.5 + torch.rand(t_.shape, generator=gen))
+            elif t_.is_floating_point():
+                t_.copy_(0.1 * torch.randn(t_.shape, generator=gen))
+    enc = enc.eval()
+    with torch.no_grad():
+        want = enc(mel)
+        got = enc.to(dev)(mel.to(dev)).cpu()
+    ave_err = float((got - want).abs().max() / want.abs().max())
+    log(f"[{card}] AVE encoder on {len(mel)} mel crops [1, 80, 16] of a "
+        f"2 s wav: card vs CPU max |diff| {ave_err:.2e} of the output's "
+        f"scale (bound {AVE_TOL})")
+    if not ave_err <= AVE_TOL:
+        raise AssertionError("AVE encoder: card and CPU differ")
+    tmp.cleanup()
+    return {"launches": launches, "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
@@ -2170,6 +2647,11 @@ def main() -> int:
     # ---- 14. multi-identity pre-training ------------------------------------
     later.update(pretraining(card, dev))
 
+    # ---- 15. static training and reference import ---------------------------
+    static = static_training(card, dev)
+    later["static_training"] = static["launches"]
+    static_t = static["timed"]
+
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())
     log(json.dumps({"kernels": [{
@@ -2188,12 +2670,14 @@ def main() -> int:
                                 for k, v in later.items()},
                              "clip_synthesis": clip["launches"]},
         "max_abs_err": max(err_main, err34, err_wide,
-                           *(c["fwd_err"] for c in train_cases.values())),
+                           *(c["fwd_err"] for c in train_cases.values()),
+                           static_t["composite_fwd"]["max_abs_err"]),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "wide_serving": wide_serving,
         "training_shape": {"face": face_t["composite_fwd"],
-                           "wide": wide_t["composite_fwd"]}}, {
+                           "wide": wide_t["composite_fwd"],
+                           "static": static_t["composite_fwd"]}}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "instag_torch/csrc/composite_bwd.cu",
         "replaces": "instag_tpu/ops/pallas_composite.py:260",
@@ -2207,8 +2691,10 @@ def main() -> int:
                                 for k, v in later.items()}},
         **{k: face_t["composite_bwd"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "max_abs_err": bwd_err,
-        "wide": wide_t["composite_bwd"]}, {
+        "max_abs_err": max(bwd_err,
+                           static_t["composite_bwd"]["max_abs_err"]),
+        "wide": wide_t["composite_bwd"],
+        "static": static_t["composite_bwd"]}, {
         "name": "scatter_add", "route": "cuda",
         "source": "instag_torch/csrc/scatter_add.cu",
         "replaces": "instag_tpu/ops/pallas_scatter.py:53",
@@ -2223,8 +2709,10 @@ def main() -> int:
         **{k: face_t["scatter_add"][k] for k in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": max(face_t["scatter_add"]["max_abs_err"],
-                           wide_t["scatter_add"]["max_abs_err"]),
-        "wide": wide_t["scatter_add"]}]}))
+                           wide_t["scatter_add"]["max_abs_err"],
+                           static_t["scatter_add"]["max_abs_err"]),
+        "wide": wide_t["scatter_add"],
+        "static": static_t["scatter_add"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -43,7 +43,7 @@ def check_identity_parallel(on: bool) -> None:
         raise SystemExit(
             "--identity_parallel: training every identity at once needs a "
             "device mesh of one card an identity, which the port does not "
-            "have yet (ROADMAP queue 1, item 6); run without it for the "
+            "have yet (ROADMAP queue 1, item 7); run without it for the "
             "serial path")
 
 

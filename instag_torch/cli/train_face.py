@@ -48,7 +48,7 @@ def check_data_parallel(n: int) -> None:
         raise SystemExit(
             f"--data_parallel {n}: sharding the frame batch needs a device "
             f"mesh of {n} cards, which the port does not have yet (ROADMAP "
-            "queue 1, item 6); run with --data_parallel 1")
+            "queue 1, item 7); run with --data_parallel 1")
 
 
 def load_pretrain(path: str) -> dict:

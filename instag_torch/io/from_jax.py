@@ -9,7 +9,10 @@ inverse of the layout map in instag_tpu/io/reference_convert.py:
   * 1-D Conv ``kernel`` [K, I, O] -> Conv1d ``weight`` [O, I, K];
   * Dense ``kernel`` [I, O]  -> Linear ``weight`` [O, I];
   * ``bias``, hash-grid ``embeddings`` and LPIPS ``lin_i`` are copied as
-    they are.
+    they are;
+  * BatchNorm ``scale``/``bias`` and its ``batch_stats`` ``mean``/``var``
+    -> BatchNorm2d ``weight``/``bias``/``running_mean``/``running_var``
+    (the AVE mel encoder).
 
 The Gaussian state (from numpy fields, or from any object with the JAX
 state's attributes), its Adam state, the frame batch and the frame meta of
@@ -64,9 +67,57 @@ def lpips_state_dict(flax_params: Mapping) -> dict[str, torch.Tensor]:
 def load_motion_net(net: nn.Module, flax_params: Mapping,
                     device: str | torch.device = "cuda") -> nn.Module:
     """Load converted flax weights into ``net`` (every parameter must match)
-    and move it to ``device``."""
+    and move it to ``device``: a motion network, or any module named as its
+    flax twin from MLPs, convolutions and hash grids, such as
+    ``models.grid_renderer.GridRenderer``."""
     dev = resolve_device(device)
     net.load_state_dict(motion_state_dict(flax_params), strict=True)
+    return net.to(dev).eval()
+
+
+def _unflatten(flat: Mapping) -> dict:
+    """A ``flatten_dict(sep="/")`` mapping (as ``np.load`` of a
+    ``convert_ave_encoder`` file gives it) as nested dicts."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return tree
+
+
+def audio_encoder_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``AudioEncoder``'s variables (``{"params": ...,
+    "batch_stats": ...}``, nested or flattened with "/" as in a
+    ``convert_ave_encoder`` .npz) as the state dict of
+    ``models.nets.AudioEncoder``."""
+    if any("/" in k for k in variables):
+        variables = _unflatten(variables)
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for block, p in params.items():
+        sd[f"{block}.conv.weight"] = np.asarray(p["conv"]["kernel"]
+                                                ).transpose(3, 2, 0, 1)
+        sd[f"{block}.conv.bias"] = p["conv"]["bias"]
+        sd[f"{block}.bn.weight"] = p["bn"]["scale"]
+        sd[f"{block}.bn.bias"] = p["bn"]["bias"]
+        sd[f"{block}.bn.running_mean"] = stats[block]["bn"]["mean"]
+        sd[f"{block}.bn.running_var"] = stats[block]["bn"]["var"]
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+           for k, v in sd.items()}
+    out.update({f"{block}.bn.num_batches_tracked": torch.tensor(0)
+                for block in params})
+    return out
+
+
+def load_audio_encoder(net: nn.Module, variables: Mapping,
+                       device: str | torch.device = "cuda") -> nn.Module:
+    """Load the JAX ``AudioEncoder``'s variables into ``net`` (every
+    parameter and statistic must match), in eval mode on ``device``."""
+    dev = resolve_device(device)
+    net.load_state_dict(audio_encoder_state_dict(variables), strict=True)
     return net.to(dev).eval()
 
 

@@ -16,7 +16,10 @@ instag_tpu/models/motion.py).
 Module and parameter names match the flax trees (``audio.audio_net.conv_0``,
 ``encoder.encoder_xy.embeddings``, ``sigma_net.net_2``, ...). The mouth UMF
 has no ``aud_ch_att_net``: the flax module declares one but never calls it,
-so its parameter tree holds none.
+so its parameter tree holds none. The reference's module holds one (it is
+declared there and never called either), so a bundle converted from a
+reference checkpoint carries its weights; the mouth UMF's loading drops
+them.
 """
 
 from __future__ import annotations
@@ -116,6 +119,13 @@ class MouthMotionNetwork(nn.Module):
         in_dim = self.encoder.output_dim
         self.sigma_net = MLP(in_dim + audio_dim + 3, 7, 32, 3)
         self.scaler_net = MLP(in_dim + 3, 1, 16, 3)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        # the reference's never-called aud_ch_att_net (see the module doc)
+        for k in [k for k in state_dict
+                  if k.startswith(prefix + "aud_ch_att_net.")]:
+            del state_dict[k]
+        super()._load_from_state_dict(state_dict, prefix, *args)
 
     def forward(self, x, a, move) -> dict:
         """move [1, 3]: the face-motion range feature from the renderer."""

@@ -1,9 +1,11 @@
-"""Small neural blocks: MLP, audio feature extractors, audio attention
-(counterpart of instag_tpu/models/nets.py).
+"""Small neural blocks: MLP, audio feature extractors, audio attention and
+the mel encoder of AVE features (counterpart of
+instag_tpu/models/nets.py).
 
 Submodule names follow the flax modules (``net_0``, ``conv_0``, ``fc_0``,
-``att_conv_0``, ``att_fc``) so weights carry across by a mechanical rename
-(io/from_jax.py). Layouts are PyTorch's: Conv1d over [B, C, T].
+``att_conv_0``, ``att_fc``, ``block_0.conv``, ``block_0.bn``) so weights
+carry across by a mechanical rename (io/from_jax.py). Layouts are
+PyTorch's: Conv1d over [B, C, T], Conv2d over [B, C, H, W].
 """
 
 from __future__ import annotations
@@ -97,3 +99,62 @@ class AudioNetAVE(nn.Module):
         x = Fn.leaky_relu(self.fc_0(x), 0.02)
         x = Fn.leaky_relu(self.fc_1(x), 0.02)
         return self.fc_2(x).reshape(x.shape[0], self.dim_aud)
+
+
+class ConvBNRelu(nn.Module):
+    """Conv2d + BatchNorm2d + ReLU, with the input added before the ReLU
+    when ``residual``. The batch norm uses its running statistics once the
+    module is in eval mode, as the JAX module's default ``train=False``
+    does."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride: tuple[int, int], padding: int,
+                 residual: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
+                              padding=padding)
+        self.bn = nn.BatchNorm2d(cout)
+        self.residual = residual
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn(self.conv(x))
+        if self.residual:
+            out = out + x
+        return Fn.relu(out)
+
+
+# (cout, kernel, stride, padding, residual) of each block
+AUDIO_ENCODER_SPECS = [
+    (32, (3, 3), (1, 1), 1, False),
+    (32, (3, 3), (1, 1), 1, True),
+    (32, (3, 3), (1, 1), 1, True),
+    (64, (3, 3), (3, 1), 1, False),
+    (64, (3, 3), (1, 1), 1, True),
+    (64, (3, 3), (1, 1), 1, True),
+    (128, (3, 3), (3, 3), 1, False),
+    (128, (3, 3), (1, 1), 1, True),
+    (128, (3, 3), (1, 1), 1, True),
+    (256, (3, 3), (3, 2), 1, False),
+    (256, (3, 3), (1, 1), 1, True),
+    (512, (3, 3), (1, 1), 0, False),
+    (512, (1, 1), (1, 1), 0, False),
+]
+
+
+class AudioEncoder(nn.Module):
+    """Wav2Lip-style mel encoder of the AVE features: [B, 1, 80, 16] mel
+    crops -> [B, 512] (the JAX module takes the same crops as [B, 80, 16,
+    1]). Load its weights with ``io.from_jax.load_audio_encoder``, which
+    puts it in eval mode."""
+
+    def __init__(self):
+        super().__init__()
+        cin = 1
+        for i, (c, k, s, p, res) in enumerate(AUDIO_ENCODER_SPECS):
+            setattr(self, f"block_{i}", ConvBNRelu(cin, c, k, s, p, res))
+            cin = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(AUDIO_ENCODER_SPECS)):
+            x = getattr(self, f"block_{i}")(x)
+        return x.reshape(x.shape[0], -1)

@@ -91,9 +91,12 @@ class RasterizeOutput(NamedTuple):
 
 def project_gaussians(cfg: RasterizeConfig, means3d, scales, rotations,
                       viewmatrix, projmatrix, campos, tanfovx, tanfovy,
-                      active=None) -> Projected:
+                      active=None, cov3d_precomp=None) -> Projected:
     """Project Gaussians to screen space with EWA covariance.
-    ``viewmatrix``/``projmatrix`` are transposed (row-vector convention)."""
+    ``viewmatrix``/``projmatrix`` are transposed (row-vector convention).
+    ``cov3d_precomp`` [N, 6], the upper-triangular world covariance
+    (c00, c01, c02, c11, c12, c22), overrides ``scales``/``rotations`` in
+    the EWA; the splat normals still come from them."""
     H, W = cfg.image_height, cfg.image_width
     focal_x = W / (2.0 * tanfovx)
     focal_y = H / (2.0 * tanfovy)
@@ -136,13 +139,16 @@ def project_gaussians(cfg: RasterizeConfig, means3d, scales, rotations,
     R22 = 1 - 2 * (qx * qx + qy * qy)
 
     # Sigma = R S^2 R^T (6 unique entries)
-    s0, s1, s2 = scales[:, 0] ** 2, scales[:, 1] ** 2, scales[:, 2] ** 2
-    c00 = R00 * R00 * s0 + R01 * R01 * s1 + R02 * R02 * s2
-    c11 = R10 * R10 * s0 + R11 * R11 * s1 + R12 * R12 * s2
-    c22 = R20 * R20 * s0 + R21 * R21 * s1 + R22 * R22 * s2
-    c01 = R00 * R10 * s0 + R01 * R11 * s1 + R02 * R12 * s2
-    c02 = R00 * R20 * s0 + R01 * R21 * s1 + R02 * R22 * s2
-    c12 = R10 * R20 * s0 + R11 * R21 * s1 + R12 * R22 * s2
+    if cov3d_precomp is not None:
+        c00, c01, c02, c11, c12, c22 = cov3d_precomp.unbind(-1)
+    else:
+        s0, s1, s2 = scales[:, 0] ** 2, scales[:, 1] ** 2, scales[:, 2] ** 2
+        c00 = R00 * R00 * s0 + R01 * R01 * s1 + R02 * R02 * s2
+        c11 = R10 * R10 * s0 + R11 * R11 * s1 + R12 * R12 * s2
+        c22 = R20 * R20 * s0 + R21 * R21 * s1 + R22 * R22 * s2
+        c01 = R00 * R10 * s0 + R01 * R11 * s1 + R02 * R12 * s2
+        c02 = R00 * R20 * s0 + R01 * R21 * s1 + R02 * R22 * s2
+        c12 = R10 * R20 * s0 + R11 * R21 * s1 + R12 * R22 * s2
 
     # EWA: clamp view-space angles to 1.3 * fov; tz clamps at the near-cull
     # depth (culled splats would otherwise overflow the Jacobian to NaN)
@@ -284,14 +290,16 @@ class Prepared(NamedTuple):
 
 def prepare(cfg: RasterizeConfig, means3d, scales, rotations, viewmatrix,
             projmatrix, campos, tanfovx, tanfovy, means2d_offset=None,
-            active=None, selection=None) -> Prepared:
+            active=None, selection=None, cov3d_precomp=None) -> Prepared:
     """Projection + tile selection only. ``selection``: ``(ids, valid)`` from
     a previous frame to reuse instead of selecting (composite it with
     ``mask_invisible=True``), or a callable ``(proj, px, py) -> (ids,
     valid)`` that sees this frame's projection and picks the tile lists
-    itself (the guarded refresh of ``synthesize``'s ``select_auto``)."""
+    itself (the guarded refresh of ``synthesize``'s ``select_auto``).
+    ``cov3d_precomp`` as in ``project_gaussians``."""
     proj = project_gaussians(cfg, means3d, scales, rotations, viewmatrix,
-                             projmatrix, campos, tanfovx, tanfovy, active)
+                             projmatrix, campos, tanfovx, tanfovy, active,
+                             cov3d_precomp)
     px, py = proj.px, proj.py
     if means2d_offset is not None:
         px = px + means2d_offset[:, 0]
@@ -330,13 +338,16 @@ def rasterize(cfg: RasterizeConfig, means3d, opacities, scales, rotations,
               viewmatrix, projmatrix, campos, tanfovx, tanfovy, bg,
               shs=None, sh_degree: int = 0, colors_precomp=None,
               extra_attrs=None, means2d_offset=None,
-              active=None) -> RasterizeOutput:
+              active=None, cov3d_precomp=None) -> RasterizeOutput:
     """Rasterize N Gaussians: means3d [N,3], opacities [N,1] (post-sigmoid),
     scales [N,3] (post-softplus), rotations [N,4], transposed view/proj
     [4,4], campos [3], bg [3]; colors from ``shs`` [N,Ksh,3] at
-    ``sh_degree`` or ``colors_precomp`` [N,3]."""
+    ``sh_degree`` or ``colors_precomp`` [N,3]; ``cov3d_precomp`` [N,6] (see
+    ``project_gaussians``) in place of the scales' and rotations'
+    covariance, differentiable."""
     prep = prepare(cfg, means3d, scales, rotations, viewmatrix, projmatrix,
-                   campos, tanfovx, tanfovy, means2d_offset, active)
+                   campos, tanfovx, tanfovy, means2d_offset, active,
+                   cov3d_precomp=cov3d_precomp)
     colors = (colors_precomp if colors_precomp is not None
               else sh_colors(means3d, campos, shs, sh_degree))
     return composite_prepared(cfg, prep, opacities, colors, bg, extra_attrs)

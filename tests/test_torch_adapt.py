@@ -100,6 +100,6 @@ def test_adapt_fast_skip_synthesis_writes_the_bundles(scene, tmp_path):
 @pytest.mark.parametrize("cli", [train_face, train_mouth, train_fuse_con,
                                  adapt])
 def test_data_parallel_is_refused(cli, tmp_path):
-    with pytest.raises(SystemExit, match="queue 1, item 6"):
+    with pytest.raises(SystemExit, match="queue 1, item 7"):
         cli.main(["-s", str(tmp_path), "-m", str(tmp_path),
                   "--data_parallel", "2", "--device", "cpu"])

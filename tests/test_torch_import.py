@@ -108,3 +108,48 @@ def test_adaptation_clis_default_to_the_card(name, monkeypatch, tmp_path):
         cli.main(["-s", str(tmp_path / "scene"), "-m",
                   str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()
+
+
+NEW_MODULES = ["instag_torch.ops.freq", "instag_torch.ops.encoding",
+               "instag_torch.ops.reference_splat",
+               "instag_torch.models.grid_renderer",
+               "instag_torch.io.reference_convert",
+               "instag_torch.train.static", "instag_torch.cli.metrics",
+               "instag_torch.cli.auerror",
+               "instag_torch.data.synthetic_hard"]
+
+
+def test_static_slice_modules_load_no_jax():
+    """The modules of the static-training slice are in the source scan,
+    and ``import instag_torch.train.static`` in a fresh process, then the
+    slice's other modules, load no JAX."""
+    assert set(NEW_MODULES) <= set(_modules())
+    code = ("import importlib, sys\n"
+            f"for m in {['instag_torch.train.static'] + NEW_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"    bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+            "    assert not bad, (m, bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_static_slice_entry_points_default_to_the_card(monkeypatch,
+                                                       tmp_path):
+    """Without a card, the static trainer, its CLI, the hard scene writer
+    and the metrics CLI raise before they read or write anything."""
+    from instag_torch.cli import metrics
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data.synthetic_hard import generate_hard_scene
+    from instag_torch.train import static
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: static.train(ModelConfig(), OptimizationConfig()),
+                 lambda: static.main(["-s", str(tmp_path / "scene"), "-m",
+                                      str(tmp_path / "run")]),
+                 lambda: generate_hard_scene(str(tmp_path / "hard")),
+                 lambda: metrics.main(["--pred", "a.npz", "--gt", "b.npz"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not any(tmp_path.iterdir())

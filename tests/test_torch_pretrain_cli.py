@@ -173,6 +173,6 @@ def test_train_face_starts_from_port_ema_bundle(runs, monkeypatch):
 
 @pytest.mark.parametrize("cli", [t_pretrain_cli, t_face_cli, t_mouth_cli])
 def test_identity_parallel_refused(cli, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
+    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 7"):
         cli.main(["-s", str(tmp_path), "-m", str(tmp_path),
                   "--identity_parallel", "--device", "cpu"])

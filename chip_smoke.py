@@ -136,6 +136,27 @@ Phases (any failure exits non-zero, and the result line is not printed):
      128x128 with 2000 splats at SH degree 1 under the JAX suite's bounds,
      ``cov3d_precomp`` against scales and rotations (1e-5); and the AVE
      mel encoder on the card against the CPU over a wav's crops (1e-4).
+ 16. the preprocessing chain on the card: a raw capture of the hard
+     identity (``data.synthetic_hard.render_hard_video``, 512x512, 40 + 10
+     frames at 2x supersampling: an MJPEG AVI, its WAV and the stub of
+     what the learned extractors would give); ``python -m
+     instag_torch.data_utils.process <video> --task -1 --synthetic_gt
+     <stub>`` as a subprocess with each task's wall; the scene contract of
+     tests/test_e2e_seam.py (``aud_ds.npy`` [50, 16, 29]); ``ori_imgs``
+     against the stub's frames by PSNR; ``track_params.npz`` against the
+     tracker on the CPU over the same landmarks; ``bc.jpg``, ``gt_imgs``
+     and ``torso_imgs`` (the plate and every 5th frame) against tasks 5-6
+     computed on the CPU from the card's decoded inputs (byte-equal JPEGs,
+     pixel-equal PNGs) and, where PIL imports, from libjpeg's decode (24
+     levels, 2.0 on average); task 2 with ``--asr ave`` on the card
+     against the CPU (1e-4 of the output's scale); ``cli.train_face`` in
+     process on the output at ``ModelConfig()``'s widths for 200 steps
+     (finite, falling losses, one launch of each kernel a step), then one
+     densification of its final state; and the streamed read of the train
+     split (its frames bit-equal to the CLI's read on the card, the card's
+     memory growing by no more than one decode chunk while the
+     ``HostFrameStore`` is built). Times: the capture, each task, the
+     process, the train step and the streamed read.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -145,6 +166,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import ctypes
+import importlib.util
 import io
 import json
 import os
@@ -229,6 +251,16 @@ ORACLE_SIZE, ORACLE_SPLATS = 128, 2000
 ORACLE_ATOL = {"image": 2e-3, "alpha": 2e-3, "depth": 2e-2, "normal": 5e-3}
 COV3D_ATOL = 1e-5
 AVE_TOL = 1e-4           # AVE encoder, card vs CPU, of the output's scale
+# phase 16: the preprocessing chain
+SEAM_FRAMES, SEAM_VAL = 40, 10           # 50 frames: 2 s at 25 fps
+SEAM_ITERS = 200                         # cli.train_face steps on the output
+SEAM_PSNR_MIN = 35.0     # dB, ori_imgs against the stub's frames (two q95
+                         # and one q98 generation of nvJPEG)
+SEAM_POSE_TOL = 1e-5     # track_params, card vs CPU (float32 on disk)
+SEAM_CHECK_EVERY = 5     # tasks 5-6 checked on every 5th frame
+SEAM_LEVELS = (24, 2.0)  # max and mean |level| against libjpeg's route
+                         # (two q95 encoders and two decoders; measured 16
+                         # and 1.08 on gt_imgs, first set at 16 and 1.0)
 PRE_BUNDLES = {"pretrain_face": "chkpnt_face_latest.pkl",
                "pretrain_ema_face": "chkpnt_ema_face_latest.pkl",
                "pretrain_identity_face": "id_a_face_latest.pkl",
@@ -2314,6 +2346,241 @@ def static_training(card: str, dev: torch.device) -> dict:
     return {"launches": launches, "timed": timed}
 
 
+def preprocessing_seam(card: str, dev: torch.device) -> dict:
+    """Phase 16: a raw capture through ``data_utils.process`` on the card
+    and into ``cli.train_face``, with its checks and times. Returns each
+    kernel's launches on the training run."""
+    import shutil
+    import tempfile
+
+    from instag_torch.cli import train_face as train_face_cli
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.data import dataset as D
+    from instag_torch.data.image_io import (decode_jpegs, encode_jpeg,
+                                            read_jpegs, read_png)
+    from instag_torch.data.synthetic_hard import render_hard_video
+    from instag_torch.data_utils import process as P
+    from instag_torch.data_utils.audio_features import extract_ave
+    from instag_torch.data_utils.tracker import track_poses
+    from instag_torch.models import gaussians as G
+    from instag_torch.train.common import (frame_source,
+                                           load_training_frames)
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    total = SEAM_FRAMES + SEAM_VAL
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    video, stub = render_hard_video(root, n_frames=SEAM_FRAMES, size=SIZE,
+                                    n_val=SEAM_VAL, supersample=2,
+                                    device=dev)
+    render_s = time.perf_counter() - t
+    base = os.path.dirname(video)
+
+    # the chain as a user runs it
+    cmd = [sys.executable, "-m", "instag_torch.data_utils.process", video,
+           "--task", "-1", "--synthetic_gt", stub, "--device", dev.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    process_s = time.perf_counter() - t
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    for line in (lines[-30:] if proc.returncode else lines):
+        log(f"  process | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"data_utils.process exited {proc.returncode}")
+    walls = {int(x.split()[2].rstrip(":")): float(x.split()[3])
+             for x in lines if x.startswith("[process] task ")}
+    log(f"[{card}] capture: {SIZE}x{SIZE}, {SEAM_FRAMES} + {SEAM_VAL} "
+        f"frames at 2x supersampling rendered and written (MJPEG AVI by "
+        f"nvJPEG, WAV, stub) in {render_s:.2f} s; process --task -1 "
+        f"--synthetic_gt: exit 0 in {process_s:.2f} s wall as a process, "
+        f"tasks " + ", ".join(f"{k}: {v:.3f} s" for k, v in walls.items()))
+
+    # the contract of tests/test_e2e_seam.py
+    for f in ["aud.wav", "aud_ds.npy", "bc.jpg", "au.csv",
+              "transforms_train.json", "transforms_val.json",
+              "track_params.npz"]:
+        if not os.path.exists(os.path.join(base, f)):
+            raise AssertionError(f"process wrote no {f}")
+    for d in ["ori_imgs", "gt_imgs", "torso_imgs", "parsing", "teeth_mask"]:
+        if not os.path.isdir(os.path.join(base, d)):
+            raise AssertionError(f"process wrote no {d}/")
+    aud = np.load(os.path.join(base, "aud_ds.npy"))
+    if aud.shape != (total, 16, 29) or not np.isfinite(aud).all():
+        raise AssertionError(f"aud_ds.npy {aud.shape}")
+
+    # the extracted frames against the frames the capture was made from
+    ids = range(total)
+    ori = read_jpegs([os.path.join(base, "ori_imgs", f"{i}.jpg")
+                      for i in ids], dev)
+    src = read_jpegs([os.path.join(stub, "gt_imgs", f"{i}.jpg")
+                      for i in ids], dev)
+    psnrs = [_psnr(a.cpu().numpy(), b.cpu().numpy())
+             for a, b in zip(ori, src)]
+
+    # task 8 on the CPU over the same landmarks
+    cpu_dir = os.path.join(root, "track_cpu")
+    os.makedirs(os.path.join(cpu_dir, "ori_imgs"))
+    for f in os.listdir(os.path.join(base, "ori_imgs")):
+        if f.endswith(".lms") or f == "0.jpg":
+            shutil.copy(os.path.join(base, "ori_imgs", f),
+                        os.path.join(cpu_dir, "ori_imgs", f))
+    with contextlib.redirect_stdout(io.StringIO()):
+        track_poses(cpu_dir, os.path.join(cpu_dir, "ori_imgs"),
+                    device="cpu")
+    want = dict(np.load(os.path.join(cpu_dir, "track_params.npz")))
+    got = dict(np.load(os.path.join(base, "track_params.npz")))
+    pose_err = max(float(np.abs(got[k] - want[k]).max()
+                         / max(1.0, float(np.abs(want[k]).max())))
+                   for k in want)
+
+    # tasks 5-6 on the CPU: from the inputs the card decoded, encoded as
+    # the card encodes (byte-equal), and from libjpeg's decode through PIL,
+    # where it imports (within SEAM_LEVELS), on every SEAM_CHECK_EVERY-th
+    # frame and the plate
+    paths = P._by_index([os.path.join(base, "ori_imgs", f"{i}.jpg")
+                         for i in ids])
+    sampled = paths[::20]
+    parses = np.stack([read_png(P._parsing_path(p), 3) for p in sampled])
+    plate = P.background_plate(read_jpegs(sampled, dev).cpu().numpy(),
+                               parses)
+    with open(os.path.join(base, "bc.jpg"), "rb") as f:
+        bc_same = f.read() == encode_jpeg(torch.from_numpy(plate).to(dev),
+                                          P.JPEG_QUALITY)
+    bc = read_jpegs([os.path.join(base, "bc.jpg")], dev)[0].cpu().numpy()
+    checked = paths[::SEAM_CHECK_EVERY]
+    card_gt = read_jpegs([p.replace("ori_imgs", "gt_imgs") for p in checked],
+                         dev).cpu().numpy()
+    card_torso = [read_png(p.replace("ori_imgs", "torso_imgs")
+                           .replace(".jpg", ".png"), 4) for p in checked]
+    segs = [read_png(P._parsing_path(p), 3) for p in checked]
+    same = 0
+    for path, img, seg, torso_card in zip(
+            checked, read_jpegs(checked, dev).cpu().numpy(), segs,
+            card_torso):
+        gt, torso = P.torso_and_gt(img, seg, bc)
+        with open(path.replace("ori_imgs", "gt_imgs"), "rb") as f:
+            same += (f.read() == encode_jpeg(torch.from_numpy(gt).to(dev),
+                                             P.JPEG_QUALITY)
+                     and np.array_equal(torso, torso_card))
+    libjpeg = None
+    if importlib.util.find_spec("PIL") is not None:
+        # the CPU run: PIL decodes and encodes, and task 6 reads the plate
+        # back from its own bc.jpg
+        cpu = torch.device("cpu")
+        plate = P.background_plate(read_jpegs(sampled, cpu).numpy(), parses)
+        bc_cpu = decode_jpegs([encode_jpeg(plate, P.JPEG_QUALITY)],
+                              cpu)[0].numpy()
+        gts, torsos = [], []
+        for img, seg in zip(read_jpegs(checked, cpu).numpy(), segs):
+            gt, torso = P.torso_and_gt(img, seg, bc_cpu)
+            gts.append(decode_jpegs([encode_jpeg(gt, P.JPEG_QUALITY)],
+                                    cpu)[0].numpy())
+            torsos.append(torso)
+        levels = {"bc.jpg": np.abs(bc_cpu.astype(int) - bc),
+                  "gt_imgs": np.abs(np.stack(gts).astype(int) - card_gt),
+                  "torso_imgs": np.abs(np.stack(torsos).astype(int)
+                                       - np.stack(card_torso))}
+        libjpeg = {k: (int(v.max()), float(v.mean()))
+                   for k, v in levels.items()}
+
+    # task 2 with --asr ave, on the card and on the CPU
+    with contextlib.redirect_stdout(io.StringIO()):
+        P.main([video, "--task", "2", "--asr", "ave", "--device", dev.type])
+        ave_cpu = os.path.join(root, "aud_ave_cpu.npy")
+        extract_ave(os.path.join(base, "aud.wav"), ave_cpu, device="cpu")
+    a_card = np.load(os.path.join(base, "aud_ave.npy"))
+    a_cpu = np.load(ave_cpu)
+    ave_err = float(np.abs(a_card - a_cpu).max() / np.abs(a_cpu).max())
+    log(f"[{card}] seam checks: ori_imgs against the stub's frames PSNR min "
+        f"{min(psnrs):.2f} dB, mean {np.mean(psnrs):.2f} (bound "
+        f"{SEAM_PSNR_MIN}); track_params card vs CPU {pose_err:.2e} of "
+        f"scale (focal {got['focal'][0]:.0f} both: "
+        f"{got['focal'][0] == want['focal'][0]}); tasks 5-6 on the CPU from "
+        f"the card's decoded inputs: bc.jpg byte-equal {bc_same}, gt_imgs "
+        f"byte-equal and torso_imgs pixel-equal {same}/{len(checked)}; "
+        f"from libjpeg's decode (PIL): max and mean |level| "
+        + (str(libjpeg) + f" (bound {SEAM_LEVELS})" if libjpeg else
+           "not checked, PIL does not import")
+        + f"; AVE {a_card.shape} card vs CPU {ave_err:.2e} of scale "
+        f"(tolerance {AVE_TOL})")
+    if not min(psnrs) >= SEAM_PSNR_MIN:
+        raise AssertionError(f"ori_imgs at {min(psnrs):.2f} dB")
+    if not (got["focal"][0] == want["focal"][0]
+            and pose_err <= SEAM_POSE_TOL):
+        raise AssertionError("track_params differ from the CPU's")
+    if not (bc_same and same == len(checked)):
+        raise AssertionError("tasks 5-6 differ from the CPU's")
+    if libjpeg and any(m > SEAM_LEVELS[0] or a > SEAM_LEVELS[1]
+                       for m, a in libjpeg.values()):
+        raise AssertionError(f"tasks 5-6 beyond {SEAM_LEVELS} of libjpeg's")
+    if not (a_card.shape == (len(a_cpu), 512, 1) and ave_err <= AVE_TOL):
+        raise AssertionError("AVE features differ from the CPU's")
+
+    # training on the output, as a user runs it
+    argv = ["-s", base, "--iterations", str(SEAM_ITERS), "--device",
+            dev.type]
+    res, out, train_s, launches = _in_process(train_face_cli.main, argv)
+    losses = np.array(res["losses"])
+    first, last = losses[:50].mean(), losses[-50:].mean()
+    noise = torch.randn((2, res["state"].capacity, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    oc = OptimizationConfig()                # the CLI's defaults
+    alive0 = int(res["state"].num_alive())
+    dens, _ = G.densify_and_prune(res["state"], res["gopt"], noise,
+                                  oc.densify_grad_threshold, 0.05,
+                                  res["extent"], None, oc.percent_dense)
+    alive1 = int(dens.num_alive())
+    log(f"[{card}] cli.train_face on the output: {SEAM_ITERS} steps at "
+        f"{SIZE}x{SIZE}, ModelConfig() widths, in {train_s:.2f} s through "
+        f"main (scene read included), {train_s * 1e3 / SEAM_ITERS:.2f} ms "
+        f"per step; loss {first:.5f} (first 50) -> {last:.5f} (last 50); "
+        f"kernel launches {launches}; one densification of the final "
+        f"state: live splats {alive0} -> {alive1}")
+    if len(losses) != SEAM_ITERS or not np.isfinite(losses).all():
+        raise AssertionError("non-finite or missing losses")
+    if not last < first:
+        raise AssertionError("the loss did not fall on the output")
+    if any(v != SEAM_ITERS for v in launches.values()):
+        raise AssertionError(f"expected one launch of each kernel per step: "
+                             f"{launches}")
+    if alive1 == alive0:
+        raise AssertionError("the densification changed no splat")
+    del res, dens
+
+    # streaming: the train split decoded into host memory in chunks, held
+    # against the read on the card that the CLI made (memoized)
+    mc = ModelConfig(source_path=base)
+    records = load_training_frames(mc, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    host = load_training_frames(mc, dev, stream=True)
+    store = frame_source(host, with_priors=True, stream=True, device=dev)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t
+    grown = torch.cuda.memory_allocated() - m0
+    peak = torch.cuda.max_memory_allocated() - m0
+    chunk = (D.DECODE_CHUNK + 2) * SIZE * SIZE * 3     # frames, bc, planes
+    split = 2 * len(records) * SIZE * SIZE * 3         # frames and bgs
+    equal = all(torch.equal(a.image, b.image.cpu())
+                and torch.equal(a.bg, b.bg.cpu())
+                and a.image.device.type == "cpu"
+                for a, b in zip(host, records))
+    log(f"[{card}] streamed read of {len(host)} train frames: "
+        f"{stream_s:.2f} s; card memory grew by {grown} bytes (peak "
+        f"{peak}) against one decode chunk's {chunk} and the split's "
+        f"{split}; frames bit-equal to the read on the card {equal}; "
+        f"store pinned {store.host.image.is_pinned()}")
+    if not (len(host) == len(records) and equal and grown <= chunk
+            and peak <= chunk):
+        raise AssertionError("the streamed read kept frames on the card")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
@@ -2651,6 +2918,9 @@ def main() -> int:
     static = static_training(card, dev)
     later["static_training"] = static["launches"]
     static_t = static["timed"]
+
+    # ---- 16. the preprocessing chain ----------------------------------------
+    later["preprocessing_seam"] = preprocessing_seam(card, dev)
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())

@@ -38,7 +38,8 @@ from ..metrics import (evaluate_frames, lmd_from_landmarks,
 from ..models.motion import MotionNetwork, MouthMotionNetwork
 from ..synthesize import SynthesisModel, synthesize
 from ..train.common import (FrameBatch, FrameMeta, build_frame_batch,
-                            frame_source, load_training_frames)
+                            frame_source, load_training_frames,
+                            streams_training_frames)
 from ..train.face import train_face
 from ..train.fuse import train_fuse
 from ..train.mouth import train_mouth
@@ -75,9 +76,10 @@ def main(argv=None) -> dict:
             return None
         return load_motion_net(net(mc.audio_extractor), load_pretrain(p), dev)
 
-    records = load_training_frames(mc, dev)
+    stream = streams_training_frames(mc)
+    records = load_training_frames(mc, dev, stream)
     meta = FrameMeta.from_records(records)
-    batch = frame_source(records, with_priors=True, device=dev)
+    batch = frame_source(records, with_priors=True, stream=stream, device=dev)
 
     stage("train_face")
     mc.type = "face"

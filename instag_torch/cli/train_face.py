@@ -28,7 +28,7 @@ from ..io.checkpoints import (load_bundle, save_bundle, save_gaussian_ply,
 from ..io.from_jax import load_motion_net
 from ..models.motion import MotionNetwork
 from ..train.common import (FrameMeta, build_frame_batch, frame_source,
-                            load_training_frames)
+                            load_training_frames, streams_training_frames)
 from ..train.face import train_face
 
 
@@ -75,8 +75,9 @@ def main(argv=None) -> dict:
                                   load_pretrain(args.pretrain_path), dev)
     resume = (load_bundle(args.start_checkpoint) if args.start_checkpoint
               else None)
-    records = load_training_frames(mc, dev)
-    batch = frame_source(records, with_priors=True, device=dev)
+    stream = streams_training_frames(mc)
+    records = load_training_frames(mc, dev, stream)
+    batch = frame_source(records, with_priors=True, stream=stream, device=dev)
     val_batch = None
     if mc.model_path or args.test_every:
         try:

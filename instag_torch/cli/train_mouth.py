@@ -21,7 +21,8 @@ from ..io.checkpoints import (load_branch, load_bundle, save_bundle,
                               save_gaussian_ply, train_bundle)
 from ..io.from_jax import load_motion_net
 from ..models.motion import MouthMotionNetwork
-from ..train.common import FrameMeta, frame_source, load_training_frames
+from ..train.common import (FrameMeta, frame_source, load_training_frames,
+                            streams_training_frames)
 from ..train.mouth import train_mouth
 from .train_face import add_port_args, check_data_parallel, load_pretrain
 
@@ -45,11 +46,12 @@ def main(argv=None) -> dict:
                                   load_pretrain(args.pretrain_path), dev)
     resume = (load_bundle(args.start_checkpoint) if args.start_checkpoint
               else None)
-    records = load_training_frames(mc, dev)
-    res = train_mouth(mc, oc, frame_source(records, device=dev),
-                      FrameMeta.from_records(records), face, umf_net=umf_net,
-                      long=args.long, seed=args.seed, resume_bundle=resume,
-                      device=dev)
+    stream = streams_training_frames(mc)
+    records = load_training_frames(mc, dev, stream)
+    batch = frame_source(records, stream=stream, device=dev)
+    res = train_mouth(mc, oc, batch, FrameMeta.from_records(records), face,
+                      umf_net=umf_net, long=args.long, seed=args.seed,
+                      resume_bundle=resume, device=dev)
 
     save_bundle(os.path.join(mc.model_path, "chkpnt_mouth_latest.pkl"),
                 train_bundle(res, oc.iterations))

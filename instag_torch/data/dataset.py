@@ -16,7 +16,11 @@ A scene directory holds:
 
 JPEGs decode on ``device`` (nvJPEG on the card, PIL on the CPU) and the
 frame and background images stay there as uint8 tensors; every other field
-is numpy on the host, as in the JAX package. PNGs decode with
+is numpy on the host, as in the JAX package. A host read (``host=True``,
+for a streamed split) decodes ``DECODE_CHUNK`` frames at a time on
+``device``, copies each chunk to host memory and frees it, and composites
+the torso on the host: its records hold CPU tensors and nothing of the split
+stays on the card. PNGs decode with
 ``image_io.read_png`` and ``au.csv`` reads with the ``csv`` module into
 float64 columns. Camera convention: NeRF c2w with OpenGL axes, flipped to
 COLMAP by negating the y and z columns; matrices stored transposed.
@@ -56,6 +60,7 @@ class FrameRecord:
     full_proj_transform: np.ndarray  # [4,4] transposed W2C @ P
     camera_center: np.ndarray        # [3]
     image: torch.Tensor              # [H,W,3] uint8, on the reader's device
+                                     # (the host for a host read)
     bg: torch.Tensor                 # [H,W,3] uint8 torso over bc.jpg, same
     face_mask: np.ndarray            # [H,W] bool
     hair_mask: np.ndarray
@@ -109,15 +114,23 @@ _FRAMES_CACHE: dict[tuple, list[FrameRecord]] = {}
 _FRAMES_CACHE_MAX = 3
 _FRAMES_LOCK = threading.Lock()
 
+DECODE_CHUNK = 16   # frames a host read decodes on the device at a time
+
 
 def load_frames(path: str, split: str = "train",
                 audio_extractor: str = "deepspeech", n_views: int = -1,
                 audio_file: str = "", preload: bool = True,
                 with_priors: bool | None = None,
-                device: str | torch.device = "cuda") -> list[FrameRecord]:
+                device: str | torch.device = "cuda",
+                host: bool = False) -> list[FrameRecord]:
     """One split of a scene directory as FrameRecords, memoized per
-    (path, split, arguments, device, the transforms file's mtime)."""
+    (path, split, arguments, device, the transforms file's mtime). With
+    ``host`` the frames decode on ``device`` in chunks into host memory and
+    the read is not memoized."""
     dev = resolve_device(device)
+    if host:
+        return _load_frames_uncached(path, split, audio_extractor, n_views,
+                                     audio_file, with_priors, dev, True)
     tf = os.path.join(path, f"transforms_{split}.json")
     key = (os.path.abspath(path), split, audio_extractor, n_views,
            audio_file, preload, with_priors, str(dev),
@@ -134,10 +147,46 @@ def load_frames(path: str, split: str = "train",
         return records
 
 
+def _composite_torso(torso: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    """RGBA torso frames [N, H, W, 4] uint8 over the background [H, W, 3]
+    uint8, in float32 (the same operations on either device)."""
+    torso = torso.to(torch.float32)
+    a = torso[..., 3:] / 255.0
+    return (torso[..., :3] * a + bc * (1 - a)).to(torch.uint8)
+
+
+def _decode_frames(path: str, ids: list[int], dev: torch.device,
+                   host: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frames ``gt_imgs/{id}.jpg`` and their torso-over-``bc.jpg``
+    backgrounds as uint8 [N, H, W, 3]: on ``dev``, or (``host``) decoded
+    there ``DECODE_CHUNK`` at a time into host tensors."""
+    def torso(chunk):
+        return torch.from_numpy(np.stack([
+            read_png(os.path.join(path, "torso_imgs", f"{i}.png"),
+                     channels=4) for i in chunk]))
+
+    def jpegs(chunk):
+        return read_jpegs([os.path.join(path, "gt_imgs", f"{i}.jpg")
+                           for i in chunk], dev)
+
+    bc = read_jpegs([os.path.join(path, "bc.jpg")], dev)[0]
+    if not host:
+        return jpegs(ids), _composite_torso(torso(ids).to(dev), bc)
+    bc = bc.cpu()
+    h, w = bc.shape[:2]
+    gt = torch.empty((len(ids), h, w, 3), dtype=torch.uint8)
+    bg = torch.empty_like(gt)
+    for s in range(0, len(ids), DECODE_CHUNK):
+        chunk = ids[s:s + DECODE_CHUNK]
+        gt[s:s + len(chunk)] = jpegs(chunk)
+        bg[s:s + len(chunk)] = _composite_torso(torso(chunk), bc)
+    return gt, bg
+
+
 def _load_frames_uncached(path: str, split: str, audio_extractor: str,
                           n_views: int, audio_file: str,
-                          with_priors: bool | None,
-                          dev: torch.device) -> list[FrameRecord]:
+                          with_priors: bool | None, dev: torch.device,
+                          host: bool = False) -> list[FrameRecord]:
     with open(os.path.join(path, f"transforms_{split}.json")) as f:
         contents = json.load(f)
     focal = contents["focal_len"]
@@ -201,17 +250,8 @@ def _load_frames_uncached(path: str, split: str, audio_extractor: str,
         if nc and dc:
             normal_dir, depth_dir = nc[0], dc[0]
 
-    # bc.jpg first, then every frame's JPEG, decoded on the device
-    bc = read_jpegs([os.path.join(path, "bc.jpg")], dev)[0]
-    ids = [frame["img_id"] for frame in frames]
-    gt_all = read_jpegs(
-        [os.path.join(path, "gt_imgs", f"{i}.jpg") for i in ids], dev)
-    # the torso composited over the background, on the device
-    torso = torch.from_numpy(np.stack([
-        read_png(os.path.join(path, "torso_imgs", f"{i}.png"), channels=4)
-        for i in ids])).to(dev).to(torch.float32)
-    a = torso[..., 3:] / 255.0
-    bg_all = (torso[..., :3] * a + bc * (1 - a)).to(torch.uint8)
+    gt_all, bg_all = _decode_frames(
+        path, [frame["img_id"] for frame in frames], dev, host)
 
     records = []
     for idx, frame in enumerate(frames):

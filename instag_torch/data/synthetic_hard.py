@@ -21,9 +21,9 @@ The scene is written in the reference's on-disk contract, the layout
 the card; PIL on the CPU, where every file is byte for byte the JAX
 package's for the same arguments), PNGs through ``image_io.write_png`` and
 ``au.csv`` through the ``csv`` module, so the card needs neither PIL nor
-pandas. (The JAX module's ``synthesize_articulation_wav`` and
-``render_hard_video``, the raw-capture entry of the preprocessing
-pipeline, come with the port's preprocessing.)
+pandas. ``render_hard_video`` turns an identity into a raw capture (an
+MJPEG AVI and its WAV) for the preprocessing chain,
+``instag_torch.data_utils.process``.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 
 from ..device import resolve_device
 from .dataset import random_init_points
-from .image_io import write_jpeg, write_png
+from .image_io import read_jpegs, write_jpeg, write_png
 from .plyio import write_point_cloud
 
 GOLDEN = 1.6180339887
@@ -576,3 +576,73 @@ def generate_hard_scene(path: str, n_frames: int = 250, size: int = 256,
     write_point_cloud(os.path.join(path, "points3d.ply"), xyz,
                       (colors * 255).astype(np.uint8))
     return motion
+
+
+def synthesize_articulation_wav(motion: "_MotionModel", total: int,
+                                fps: int = 25, sr: int = 16000,
+                                seed: int = 0) -> np.ndarray:
+    """A WAV whose band energies encode the articulation signals: each
+    articulation dim amplitude-modulates one log-spaced sine carrier
+    (250 Hz to ~3 kHz), so the deepspeech surrogate features (26 log-mels,
+    energy, centroid, flux) recover a(t) linearly and the chain video ->
+    process -> train trains an audio-driven motion field with no learned
+    extractor."""
+    n = int(total / fps * sr)
+    tau = np.arange(n, dtype=np.float64) / sr
+    # per-sample articulation by linear interpolation of the frame values
+    ft = np.clip(tau * fps, 0, total - 1)
+    i0 = np.floor(ft).astype(int)
+    i1 = np.minimum(i0 + 1, total - 1)
+    w1 = ft - i0
+    a_frames = np.stack([motion.art(t) for t in range(total)])  # [T, D]
+    a_s = a_frames[i0] * (1 - w1[:, None]) + a_frames[i1] * w1[:, None]
+    d_dims = a_frames.shape[1]
+    freqs = 250.0 * (2.0 ** (0.47 * np.arange(d_dims)))
+    sig = np.zeros(n)
+    for di in range(d_dims):
+        amp = 0.55 + 0.45 * np.tanh(a_s[:, di])
+        sig += amp * np.sin(2 * np.pi * freqs[di] * tau + 0.7 * di)
+    sig += 0.01 * np.random.default_rng(seed).normal(size=n)
+    return (0.5 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def render_hard_video(root: str, n_frames: int = 120, size: int = 256,
+                      seed: int = 0, n_val: int = 25, fps: int = 25,
+                      supersample: int = 2,
+                      device: str | torch.device = "cuda"
+                      ) -> tuple[str, str]:
+    """A raw capture of one hard identity for the preprocessing chain.
+
+    Writes ``<root>/gt_stub/`` (``generate_hard_scene``'s scene: of it the
+    chain reads only what its learned extractors would give, the parsing
+    masks, landmarks, teeth masks and ``au.csv``), ``<root>/data/video.avi``
+    (the stub's frames as an MJPEG AVI at quality 95 with the audio as
+    PCM16, through ``io.avmux`` with its frames on ``device``) and
+    ``<root>/data/aud.wav`` (the articulation WAV). Everything else (audio
+    features, frames, background plate, torso and gt split, head tracking,
+    transforms) is computed by ``process --synthetic_gt <root>/gt_stub``.
+
+    Returns (video_path, gt_stub_dir).
+    """
+    from scipy.io import wavfile
+
+    from ..io.avmux import write_avi_mjpeg_pcm
+
+    dev = resolve_device(device)
+    stub = os.path.join(root, "gt_stub")
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    motion = generate_hard_scene(stub, n_frames=n_frames, size=size,
+                                 seed=seed, n_val=n_val,
+                                 supersample=supersample, device=dev)
+    total = n_frames + n_val
+    wav = synthesize_articulation_wav(motion, total, fps=fps, seed=seed)
+    pcm = (wav * 32767).astype(np.int16)
+    wavfile.write(os.path.join(data_dir, "aud.wav"), 16000, pcm)
+
+    frames = read_jpegs([os.path.join(stub, "gt_imgs", f"{i}.jpg")
+                         for i in range(total)], dev)
+    video_path = os.path.join(data_dir, "video.avi")
+    write_avi_mjpeg_pcm(video_path, frames, fps, pcm, 16000,
+                        jpeg_quality=95, device=dev)
+    return video_path, stub

@@ -9,10 +9,15 @@ Two paths, as in the JAX package:
 2. otherwise a pure-Python AVI (MJPEG video + PCM16 audio) next to it. The
    frames are JPEG-encoded by ``data/image_io.encode_jpeg``: nvJPEG on the
    card, PIL on the CPU (the JAX package uses cv2).
+
+``read_avi_mjpeg`` reads such an AVI back (any RIFF AVI whose video stream
+is MJPEG, as OpenCV's and FFmpeg's MJPG writers also write it): the frames'
+JPEG bitstreams and the PCM16 audio, with no codec.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 import wave
@@ -80,15 +85,15 @@ def write_avi_mjpeg_pcm(path: str, video: np.ndarray, fps: float,
                         pcm: np.ndarray, sr: int,
                         jpeg_quality: int = 92,
                         device: str | torch.device = "cuda") -> None:
-    """[T,H,W,3] uint8 RGB + int16 mono PCM -> interleaved AVI, the frames
-    JPEG-encoded on ``device``.
+    """[T,H,W,3] uint8 RGB (an array, or a tensor on any device) + int16
+    mono PCM -> interleaved AVI, the frames JPEG-encoded on ``device``.
 
     RIFF layout (OpenDML not needed at these sizes): hdrl{avih, strl vids
     MJPG, strl auds PCM} + movi{00dc/01wb per frame} + idx1. Audio chunk i
     carries samples [round(i*sr/fps), round((i+1)*sr/fps)).
     """
     t, h, w = video.shape[:3]
-    frames = torch.as_tensor(np.asarray(video)).to(resolve_device(device))
+    frames = torch.as_tensor(video).to(resolve_device(device))
     jpegs = [encode_jpeg(f, jpeg_quality) for f in frames]
     pcm = np.ascontiguousarray(pcm, np.int16)
 
@@ -136,6 +141,85 @@ def write_avi_mjpeg_pcm(path: str, video: np.ndarray, fps: float,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", len(riff) + 4) + b"AVI " + riff)
+
+
+@dataclasses.dataclass
+class AviClip:
+    fps: float                   # the video stream's rate / scale
+    frames: list[bytes]          # one JPEG bitstream a frame, in order
+    pcm: np.ndarray | None       # int16 [samples] (channels averaged)
+    sample_rate: int
+
+
+def _riff_chunks(data: bytes, pos: int, end: int):
+    """(fourcc, payload start, payload size) of each chunk in [pos, end)."""
+    while pos + 8 <= end:
+        fcc, size = struct.unpack("<4sI", data[pos:pos + 8])
+        yield fcc, pos + 8, min(size, end - pos - 8)
+        pos += 8 + size + (size & 1)
+
+
+def read_avi_mjpeg(path: str) -> AviClip | None:
+    """The frames and audio of an AVI whose video stream is MJPEG, or None
+    for any other file (another container, or another video codec). Only
+    the first RIFF segment is read (no OpenDML extension); empty video
+    chunks (dropped frames) are skipped, as decoders skip them."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        return None
+    streams = []                  # (fccType, handler, rate/scale, strf)
+    frames, pcm = [], []
+    end = min(len(data), 8 + struct.unpack("<I", data[4:8])[0])
+    for fcc, p, n in _riff_chunks(data, 12, end):
+        if fcc != b"LIST":
+            continue
+        kind = data[p:p + 4]
+        if kind == b"hdrl":
+            for sfcc, sp, sn in _riff_chunks(data, p + 4, p + n):
+                if sfcc != b"LIST" or data[sp:sp + 4] != b"strl":
+                    continue
+                strh = strf = b""
+                for cfcc, cp, cn in _riff_chunks(data, sp + 4, sp + sn):
+                    if cfcc == b"strh":
+                        strh = data[cp:cp + cn]
+                    elif cfcc == b"strf":
+                        strf = data[cp:cp + cn]
+                scale, rate = struct.unpack("<II", strh[20:28])
+                streams.append((strh[:4], strh[4:8],
+                                rate / scale if scale else 0.0, strf))
+        elif kind == b"movi":
+            vid = next((i for i, st in enumerate(streams)
+                        if st[0] == b"vids"), None)
+            aud = next((i for i, st in enumerate(streams)
+                        if st[0] == b"auds"), None)
+            stack = [(p + 4, p + n)]
+            while stack:
+                lo, hi = stack.pop()
+                for cfcc, cp, cn in _riff_chunks(data, lo, hi):
+                    if cfcc == b"LIST":          # 'rec ' groups
+                        stack.append((cp + 4, cp + cn))
+                        continue
+                    if not cfcc[:2].isdigit():
+                        continue
+                    sid = int(cfcc[:2])
+                    if sid == vid and cfcc[2:] in (b"dc", b"db") and cn:
+                        frames.append(data[cp:cp + cn])
+                    elif sid == aud and cfcc[2:] == b"wb":
+                        pcm.append(data[cp:cp + cn])
+    video = next((st for st in streams if st[0] == b"vids"), None)
+    if video is None or b"MJPG" not in (video[1].upper(),
+                                        video[3][16:20].upper()):
+        return None
+    audio = next((st for st in streams if st[0] == b"auds"), None)
+    samples, sr = None, 0
+    if audio is not None and pcm:
+        fmt, ch, sr, _, _, bits = struct.unpack("<HHIIHH", audio[3][:16])
+        if fmt == 1 and bits == 16:
+            samples = np.frombuffer(b"".join(pcm), "<i2").reshape(-1, ch)
+            samples = samples.mean(axis=1).astype(np.int16) if ch > 1 \
+                else samples[:, 0].copy()
+    return AviClip(video[2], frames, samples, sr)
 
 
 def mux_audio(out_mp4: str, video: np.ndarray, fps: float,

@@ -76,6 +76,15 @@ def level_offsets(cfg: HashGridConfig) -> tuple[np.ndarray, int]:
     return np.asarray(offsets, dtype=np.int64), offset
 
 
+def init_hashgrid(cfg: HashGridConfig, generator: torch.Generator,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A level table [total_params, level_dim] drawn Uniform(-1e-4, 1e-4)
+    from ``generator`` (the grid encoder's init), on its device."""
+    u = torch.rand((cfg.total_params(), cfg.level_dim), generator=generator,
+                   dtype=dtype, device=generator.device)
+    return (u * 2.0 - 1.0) * 1e-4
+
+
 def _level_static(cfg: HashGridConfig, level: int):
     """(scale, resolution, hashmap_size, use_hash, offset) of one level."""
     offsets, _ = level_offsets(cfg)

@@ -7,6 +7,8 @@ photometric loss."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -103,17 +105,36 @@ class FrameMeta:
                       np.percentile(au25, 75), au25.max())
 
 
-def load_training_frames(model_cfg, device: str | torch.device = "cuda"):
+def streams_training_frames(model_cfg, stream_threshold: int = 1000) -> bool:
+    """Whether the training frames (the train split, cut to ``N_views``,
+    and the val split with ``all_for_train``) number more than
+    ``stream_threshold``, counted in the transforms files before anything
+    is decoded; the JAX trainers stream above 1000."""
+    def count(split, n_views):
+        with open(os.path.join(model_cfg.source_path,
+                               f"transforms_{split}.json")) as f:
+            n = len(json.load(f)["frames"])
+        return min(n, n_views) if n_views > 0 else n
+    n = count("train", model_cfg.N_views)
+    if model_cfg.all_for_train:
+        n += count("val", -1)
+    return n > stream_threshold
+
+
+def load_training_frames(model_cfg, device: str | torch.device = "cuda",
+                         stream: bool = False):
     """The train split's records, and the val split's after them when
-    ``all_for_train``."""
+    ``all_for_train``. A ``stream``ed split decodes on ``device`` in chunks
+    into host memory (``load_frames(host=True)``): its frames are CPU
+    tensors, for a ``HostFrameStore``."""
     from ..data.dataset import load_frames
     records = load_frames(model_cfg.source_path, "train",
                           model_cfg.audio_extractor, model_cfg.N_views,
-                          device=device)
+                          device=device, host=stream)
     if model_cfg.all_for_train:
         records = records + load_frames(model_cfg.source_path, "val",
                                         model_cfg.audio_extractor, -1,
-                                        device=device)
+                                        device=device, host=stream)
     return records
 
 

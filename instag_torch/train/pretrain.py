@@ -386,7 +386,8 @@ def _load_identity(model_cfg: ModelConfig, name: str, capacity: int,
     for the mouth, at ``model_cfg.sh_degree``."""
     dev = resolve_device(device)
     records = load_frames(os.path.join(model_cfg.source_path, name), "train",
-                          model_cfg.audio_extractor, -1, device=dev)
+                          model_cfg.audio_extractor, -1, device=dev,
+                          host=stream)
     batch = (HostFrameStore(records, device=dev) if stream
              else build_frame_batch(records, device=dev))
     _, extent = scene_extent(records)

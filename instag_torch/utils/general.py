@@ -38,6 +38,10 @@ def safe_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + eps * eps)
 
 
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return safe_normalize(q, eps)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (w, x, y, z) -> 3x3 rotation; [..., 4] -> [..., 3, 3]."""
     r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -48,3 +52,21 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     row2 = torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x),
                         1 - 2 * (x * x + y * y)], -1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) diag(s); s [..., 3], q [..., 4] normalized -> [..., 3, 3]."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
+def covariance_from_scaling_rotation(s: torch.Tensor,
+                                     q: torch.Tensor) -> torch.Tensor:
+    """The 3x3 covariance L L^T with L = R(q) diag(s)."""
+    L = build_scaling_rotation(s, q)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """3x3 symmetric -> its upper triangle (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], -1)

@@ -1,4 +1,4 @@
-"""Image losses (counterpart of instag_tpu/utils/losses.py): L1, SSIM with
+"""Image losses (counterpart of instag_tpu/utils/losses.py): L1, L2, SSIM with
 an 11x11 sigma-1.5 Gaussian window, PSNR, the LPIPS patch cut and min-max
 depth normalisation.
 """
@@ -10,6 +10,10 @@ import torch
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(x - y))
+
+
+def l2_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.mean((x - y) ** 2)
 
 
 def psnr(img: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA kernel of the serving and training paths, from
-     instag_torch/csrc, one nvcc each, started together;
+     instag_torch/csrc, one nvcc each, started together; phases 16 and 17
+     run while they compile (the JPEG codec built first), phase 17 before
+     phase 16's training run, which waits for them, so those two phases
+     come before 3;
   3. kernels against their plain PyTorch versions on the card, on tile
      features from a real 512x512 projection of the synthetic face cloud
      (36 busy tiles) and of a wide cloud that busies every tile: the
@@ -64,7 +67,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
      and one with LPIPS. Also one face step of phase 7's kind in the LPIPS
      phase: a finite loss and a non-zero LPIPS term;
  12. clip synthesis: the committed JPEG fixture decoded by nvJPEG against
-     its libjpeg decode; a 512x512 scene (16 train, 32 val frames) written
+     its libjpeg decode; a 512x512 scene (16 train, 16 val frames) written
      by ``data.synthetic.generate_scene`` on the card and read back by
      ``load_frames`` (PNGs, torso composites, masks and au.csv equal to
      what the writer held, JPEG frames above 40 dB); phase 11's result
@@ -78,19 +81,19 @@ Phases (any failure exits non-zero, and the result line is not printed):
      the times of the scene read and the bundle round trip;
  13. the adaptation CLIs at full width (``ModelConfig()``, K=256, deepspeech
      nets) on phase 12's scene: ``python -m instag_torch.cli.adapt`` as a
-     subprocess (300 face and 300 mouth steps, 100 fusion steps, the val
+     subprocess (100 face and 100 mouth steps, 100 fusion steps, the val
      clip with its variants and PLYs, ``metrics.json`` with finite PSNR
      and LPIPS and its ``lpips_real`` flag); in process, ``cli.train_face``
-     for 150 steps, then ``--start_checkpoint`` to 300 in another run
-     directory (its first log point past 150; the bundle's state, Adam
+     for 50 steps, then ``--start_checkpoint`` to 100 in another run
+     directory (its first log point past 50; the bundle's state, Adam
      state, nets and optimizer states restored and written again to the
-     same bytes; the UMF's scheduler at count 150 and its rates at the
+     same bytes; the UMF's scheduler at count 50 and its rates at the
      schedule's value there; its first 20 losses within rtol 1e-3 of an
      in-process ``train_face(resume_bundle=...)``, which launches each
      kernel once a step), ``cli.train_mouth``, ``cli.train_fuse_con`` and
      ``cli.synthesize_fuse --fast`` on that run; every bundle's key paths
      equal to the JAX CLIs' (``tests/torch_fixtures/bundle_keys.json``);
-     and 100 face steps with the frames streamed from pinned host memory
+     and 30 face steps with the frames streamed from pinned host memory
      against the same steps from the frames on the card. Each CLI's wall
      time and ms per step, and the kernels' launches on the CLI path.
  14. multi-identity pre-training at full width (``ModelConfig()``, K=256,
@@ -100,7 +103,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
      ``train.pretrain.pretrain_face`` for 1050 steps an identity (100 of
      warm-up an identity, densification from 25 every 25, the green
      prune after each, SH bumps at 1000 and 2000, log points every 250),
-     then ``pretrain_mouth`` under its result for 600 steps an identity:
+     then ``pretrain_mouth`` under its result for 300 steps an identity:
      finite losses that fall, one launch of each kernel per step, a
      densification that changed the live count; one face motion step
      without its D-SSIM term (noise over the background-green windows)
@@ -108,9 +111,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      bit-unchanged by a step, the EMA update on the card equal to the
      CPU's; each branch's warm-up and motion step alone on the final
      states and one profiled motion step of each; ``python -m
-     instag_torch.cli.pretrain --iterations 40`` as a subprocess, its
+     instag_torch.cli.pretrain --iterations 20`` as a subprocess, its
      bundles' key paths equal to the JAX CLIs'; and ``cli.train_face
-     --pretrain_path`` on its EMA bundle for 50 steps in process, from a
+     --pretrain_path`` on its EMA bundle for 25 steps in process, from a
      UMF bit-equal to the EMA.
  15. static training and reference import at full width: a hard synthetic
      identity (``data.synthetic_hard.generate_hard_scene``, 512x512, 16
@@ -137,12 +140,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
      ``cov3d_precomp`` against scales and rotations (1e-5); and the AVE
      mel encoder on the card against the CPU over a wav's crops (1e-4).
  16. the preprocessing chain on the card: a raw capture of the hard
-     identity (``data.synthetic_hard.render_hard_video``, 512x512, 40 + 10
+     identity (``data.synthetic_hard.render_hard_video``, 512x512, 20 + 5
      frames at 2x supersampling: an MJPEG AVI, its WAV and the stub of
      what the learned extractors would give); ``python -m
      instag_torch.data_utils.process <video> --task -1 --synthetic_gt
      <stub>`` as a subprocess with each task's wall; the scene contract of
-     tests/test_e2e_seam.py (``aud_ds.npy`` [50, 16, 29]); ``ori_imgs``
+     tests/test_e2e_seam.py (``aud_ds.npy`` [25, 16, 29]); ``ori_imgs``
      against the stub's frames by PSNR; ``track_params.npz`` against the
      tracker on the CPU over the same landmarks; ``bc.jpg``, ``gt_imgs``
      and ``torso_imgs`` (the plate and every 5th frame) against tasks 5-6
@@ -150,19 +153,41 @@ Phases (any failure exits non-zero, and the result line is not printed):
      pixel-equal PNGs) and, where PIL imports, from libjpeg's decode (24
      levels, 2.0 on average); task 2 with ``--asr ave`` on the card
      against the CPU (1e-4 of the output's scale); ``cli.train_face`` in
-     process on the output at ``ModelConfig()``'s widths for 200 steps
+     process on the output at ``ModelConfig()``'s widths for 100 steps
      (finite, falling losses, one launch of each kernel a step), then one
      densification of its final state; and the streamed read of the train
      split (its frames bit-equal to the CLI's read on the card, the card's
      memory growing by no more than one decode chunk while the
      ``HostFrameStore`` is built). Times: the capture, each task, the
      process, the train step and the streamed read.
+ 17. the photometric 3DMM fit and the learned extractors: (a) 50 frames of
+     ``face_model.synthetic_model()`` rendered by ``mesh_render`` on the
+     card at 512x512 and written by nvJPEG with their landmarks;
+     ``tracker.track_poses`` without and with the model (downscale 4, the
+     JAX defaults' iterations (400, 600, 60, 40)): non-zero exp and light,
+     a saved landmark error no worse than the PnP-only run's + 1e-3 px;
+     each stage's wall, the fit's peak card memory, and one stage-C step's
+     device ms and launches (two profiled fits, 1 and 2 stage-C steps);
+     (b) ``fit_photometric`` at (20, 20, 4, 4) on 8 of those 128x128
+     frames on the card and the CPU, each output within 1e-3 of its scale;
+     (c) ``3DMM/3dmm_model.npz`` written into phase 16's scene and ``python
+     -m instag_torch.data_utils.process --task 8`` as a subprocess: 25
+     frames of non-zero id, exp and light; (d) random-weight FAN-4, BiSeNet
+     and EasyPortrait FPN checkpoints (seed 0, the public key layouts)
+     through ``INSTAG_FAN_WEIGHTS``, ``INSTAG_BISENET_WEIGHTS`` and
+     ``INSTAG_EASYPORTRAIT_FPN``: ``process --task 4`` and ``--task 11`` on
+     a copy of phase 16's 25 frames and ``--task 7`` on its first 8 (a
+     random FAN tracks nothing, and its box grows ~3x a frame), every
+     file's shape and dtype; each network's raw output on 2 frames against
+     the CPU (1e-4 of scale); how many landmarks and pixels of the first 2
+     frames agree with the CPU's; ms a frame of each network.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import ctypes
@@ -206,7 +231,7 @@ SOFTEN_TOL = 1e-6        # card vs CPU softening: rtol and atol on fields
 FUSE_STEPS = 200         # phase 11; LPIPS from FUSE_STEPS // 2 + 1
 # phase 12: clip synthesis
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLIP_TRAIN, CLIP_VAL = 16, 32
+CLIP_TRAIN, CLIP_VAL = 16, 16
 FIXTURE_JPEG = "tests/torch_fixtures/frame_512.jpg"
 FIXTURE_NPZ = "tests/torch_fixtures/frame_512_libjpeg.npz"
 JPEG_FIXTURE_MAX = 3     # levels: nvJPEG's IDCT against libjpeg's islow
@@ -220,11 +245,11 @@ JPEG_PSNR_MIN = 40.0     # dB, nvJPEG q95 frames against the writer's arrays
 REUSE_PSNR_MIN = 40.0
 # phase 13: the adaptation CLIs
 BUNDLE_KEYS = "tests/torch_fixtures/bundle_keys.json"
-ADAPT_ITERS, ADAPT_FUSE_ITERS = 300, 100
-RESUME_AT, RESUME_TO = 150, 300      # train_face, then resumed to RESUME_TO
-CLI_MOUTH_ITERS, CLI_FUSE_ITERS = 150, 100
+ADAPT_ITERS, ADAPT_FUSE_ITERS = 100, 100
+RESUME_AT, RESUME_TO = 50, 100       # train_face, then resumed to RESUME_TO
+CLI_MOUTH_ITERS, CLI_FUSE_ITERS = 50, 50
 RESUME_COMPARE, RESUME_RTOL = 20, 1e-3   # losses: CLI vs in process
-STREAM_STEPS, STREAM_RTOL = 100, 1e-3    # losses: streamed vs on the card
+STREAM_STEPS, STREAM_RTOL = 30, 1e-3     # losses: streamed vs on the card
 REPORT_RENDERS = 8 + 4   # forward launches of a val report: 8 val, 4 train
 # phase 14: multi-identity pre-training (scripts/pretrain_con.sh's inits)
 PRE_IDS = ["id_a", "id_b"]
@@ -232,11 +257,11 @@ PRE_FRAMES = 16
 PRE_FACE_INIT, PRE_MOUTH_INIT = 2000, 5000
 PRE_FACE_OPT = dict(iterations=1050, densify_from_iter=25,
                     densification_interval=25)
-PRE_MOUTH_ITERS = 600
+PRE_MOUTH_ITERS = 300
 PRE_WARM_PER_ID = 100
 PRE_LOG_EVERY = 250
-PRE_CLI_ITERS = 40
-PRE_ADAPT_STEPS = 50
+PRE_CLI_ITERS = 20
+PRE_ADAPT_STEPS = 25
 EMA_TOL = 1e-6           # card vs CPU EMA update: rtol and atol
 # phase 15: static training and reference import
 STATIC_FRAMES, STATIC_VAL = 16, 4
@@ -252,8 +277,8 @@ ORACLE_ATOL = {"image": 2e-3, "alpha": 2e-3, "depth": 2e-2, "normal": 5e-3}
 COV3D_ATOL = 1e-5
 AVE_TOL = 1e-4           # AVE encoder, card vs CPU, of the output's scale
 # phase 16: the preprocessing chain
-SEAM_FRAMES, SEAM_VAL = 40, 10           # 50 frames: 2 s at 25 fps
-SEAM_ITERS = 200                         # cli.train_face steps on the output
+SEAM_FRAMES, SEAM_VAL = 20, 5            # 25 frames: 1 s at 25 fps
+SEAM_ITERS = 100                         # cli.train_face steps on the output
 SEAM_PSNR_MIN = 35.0     # dB, ori_imgs against the stub's frames (two q95
                          # and one q98 generation of nvJPEG)
 SEAM_POSE_TOL = 1e-5     # track_params, card vs CPU (float32 on disk)
@@ -261,6 +286,20 @@ SEAM_CHECK_EVERY = 5     # tasks 5-6 checked on every 5th frame
 SEAM_LEVELS = (24, 2.0)  # max and mean |level| against libjpeg's route
                          # (two q95 encoders and two decoders; measured 16
                          # and 1.08 on gt_imgs, first set at 16 and 1.0)
+# phase 17: the photometric 3DMM fit and the learned extractors
+FIT_FRAMES = 50          # the synthetic model's sequence, 2 s at 25 fps
+FIT_FOCAL = 1200.0       # a candidate of the tracker's focal search
+FIT_ITERS = (400, 600, 60, 40)           # the JAX package's defaults
+FIT_DOWNSCALE = 4
+FIT_CHECK_ITERS = (20, 20, 4, 4)         # card against the CPU
+FIT_CHECK_FRAMES = 8     # of the 128x128 inputs (the CPU's share of time)
+FIT_RTOL = 1e-3          # each output, of its scale
+NET_TOL = 1e-4           # each network's raw output, card vs CPU, of scale
+NET_CPU_FRAMES = 2       # frames whose files are also made on the CPU
+# task 7's frames: a random FAN tracks nothing, and the box cropped around
+# its landmarks grows ~3x a frame (as the JAX tracker's), so its run is
+# held to the first frames of the capture
+FAN_TRACK_FRAMES = 8
 PRE_BUNDLES = {"pretrain_face": "chkpnt_face_latest.pkl",
                "pretrain_ema_face": "chkpnt_ema_face_latest.pkl",
                "pretrain_identity_face": "id_a_face_latest.pkl",
@@ -2346,10 +2385,14 @@ def static_training(card: str, dev: torch.device) -> dict:
     return {"launches": launches, "timed": timed}
 
 
-def preprocessing_seam(card: str, dev: torch.device) -> dict:
+def preprocessing_seam(card: str, dev: torch.device,
+                       before_training) -> dict:
     """Phase 16: a raw capture through ``data_utils.process`` on the card
     and into ``cli.train_face``, with its checks and times. Returns each
-    kernel's launches on the training run."""
+    kernel's launches on the training run and its temporary directory.
+    ``before_training(capture)`` runs before the training run, with the
+    capture (its temporary directory, scene directory and video): phase
+    17, then the wait for the splat kernels' build."""
     import shutil
     import tempfile
 
@@ -2521,6 +2564,7 @@ def preprocessing_seam(card: str, dev: torch.device) -> dict:
     # training on the output, as a user runs it
     argv = ["-s", base, "--iterations", str(SEAM_ITERS), "--device",
             dev.type]
+    before_training(dict(tmp=tmp, base=base, video=video))
     res, out, train_s, launches = _in_process(train_face_cli.main, argv)
     losses = np.array(res["losses"])
     first, last = losses[:50].mean(), losses[-50:].mean()
@@ -2577,8 +2621,348 @@ def preprocessing_seam(card: str, dev: torch.device) -> dict:
     if not (len(host) == len(records) and equal and grown <= chunk
             and peak <= chunk):
         raise AssertionError("the streamed read kept frames on the card")
+    return dict(launches=launches, tmp=tmp)
+
+
+def _fit_sequence(model, n: int, seed: int = 0) -> dict:
+    """A head of ``model`` moving and speaking over ``n`` frames (the
+    sequence of tests/test_tracker_photometric.py, stretched to n)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, n)
+    light = np.zeros((27,), np.float32)
+    light[0:3] = [1.6, 1.5, 1.4]
+    light[3:6] = 0.35
+    f32 = np.float32
+    return dict(
+        id=(0.6 * rng.normal(size=(model.n_id,))).astype(f32),
+        exp=(0.5 * rng.normal(size=(n, model.n_exp))).astype(f32),
+        tex=(0.5 * rng.normal(size=(model.n_tex,))).astype(f32),
+        euler=np.stack([0.08 * np.sin(3 * t), 0.12 * np.cos(2 * t),
+                        0.04 * np.sin(1 + 3 * t)], -1).astype(f32),
+        trans=np.stack([0.01 * np.sin(2 * t), 0.01 * np.cos(2 * t),
+                        0.85 + 0.02 * np.sin(t)], -1).astype(f32),
+        light=np.tile(light[None], (n, 1)))
+
+
+def _saved_lan_err(model, path: str, lms: np.ndarray, c: float) -> tuple:
+    """The landmark error (px) of a ``track_params.npz``: the model's
+    landmarks under its saved (OpenGL) poses, id, exp and focal, against
+    the landmarks; and the file's arrays."""
+    from instag_torch.data_utils.face_model import landmarks3d
+    from instag_torch.data_utils.photometric import euler2rot, project
+
+    d = dict(np.load(path))
+    F = np.diag([1.0, -1.0, -1.0])
+    Rs = F @ euler2rot(torch.from_numpy(d["euler"])).numpy()
+    ts = (d["trans"] / 10.0) @ F.T
+    l3 = landmarks3d(model, torch.from_numpy(d["id"][:model.n_id])[None]
+                     .repeat(len(lms), 1),
+                     torch.from_numpy(d["exp"][:, :model.n_exp])).numpy()
+    cam = np.einsum("tij,tnj->tni", Rs, l3) + ts[:, None]
+    proj = project(torch.from_numpy(cam), float(d["focal"][0]), c, c)
+    return float(np.linalg.norm(proj.numpy() - lms, axis=-1).mean()), d
+
+
+def photometric_and_extractors(card: str, dev: torch.device, seam: dict):
+    """Phase 17: the photometric 3DMM fit at full width on a sequence of
+    the synthetic model, the fit on the card against the CPU, ``process
+    --task 8`` with a morphable model on phase 16's capture, and tasks 4,
+    7 and 11 through the learned extractors (random weights from a seed)
+    on a copy of it, with each network's outputs against the CPU."""
+    import shutil
+    import tempfile
+
+    from instag_torch.data.image_io import read_jpegs, read_png, write_jpeg
+    from instag_torch.data_utils import cv_ops
+    from instag_torch.data_utils import process as P
+    from instag_torch.data_utils.easyportrait_fpn import (
+        EasyPortraitFPN, load_fpn_fp, segment_logits)
+    from instag_torch.data_utils.face_model import (
+        geometry, landmarks3d, save_model, sh_shading, synthetic_model,
+        texture, to_device, vertex_normals)
+    from instag_torch.data_utils.face_parsing import (BiSeNet,
+                                                      colorize_parsing,
+                                                      load_bisenet,
+                                                      parsing_logits)
+    from instag_torch.data_utils.landmarks import (
+        LandmarkTracker, bbox_to_center_scale, build_fan, load_fan)
+    from instag_torch.data_utils.mesh_render import (MeshRenderConfig,
+                                                     render_mesh)
+    from instag_torch.data_utils.photometric import (fit_photometric,
+                                                     project,
+                                                     transform_points)
+    from instag_torch.data_utils.tracker import track_poses
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    model = synthetic_model()
+    c = SIZE / 2.0
+
+    # (a) a 50-frame sequence of the synthetic model rendered on the card
+    # at 512x512, its JPEGs through nvJPEG, with its landmarks
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    seq = _fit_sequence(model, FIT_FRAMES)
+    m = to_device(model, dev)
+    cfg = MeshRenderConfig(SIZE, SIZE)
+    fit_dir = os.path.join(tmp.name, "fit")
+    ori = os.path.join(fit_dir, "ori_imgs")
+    os.makedirs(ori)
+    g = {k: torch.from_numpy(v).to(dev) for k, v in seq.items()}
+    lms = []
+    with torch.no_grad():
+        for s0 in range(0, FIT_FRAMES, 10):
+            sl = slice(s0, min(s0 + 10, FIT_FRAMES))
+            n = sl.stop - sl.start
+            ids = g["id"][None].expand(n, -1)
+            vc = transform_points(geometry(m, ids, g["exp"][sl]),
+                                  g["euler"][sl], g["trans"][sl])
+            shade = torch.clamp_min(sh_shading(vertex_normals(vc, m.tris),
+                                               g["light"][sl]), 0.0)
+            cols = torch.clamp(texture(m, g["tex"]) * shade, 0.0, 1.0)
+            rgba = render_mesh(cfg, vc, m.tris, cols, FIT_FOCAL, c, c)
+            lms.append(project(transform_points(
+                landmarks3d(m, ids, g["exp"][sl]), g["euler"][sl],
+                g["trans"][sl]), FIT_FOCAL, c, c).cpu().numpy())
+            for i, img in zip(range(sl.start, sl.stop), rgba):
+                write_jpeg(os.path.join(ori, f"{i}.jpg"),
+                           (img[..., :3].clamp(0, 1) * 255).to(torch.uint8))
+    lms = np.concatenate(lms)
+    for i in range(FIT_FRAMES):
+        np.savetxt(os.path.join(ori, f"{i}.lms"), lms[i], "%f")
+    covered = float(rgba[..., 3].mean())
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t
+
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    params = os.path.join(fit_dir, "track_params.npz")
+    t = time.perf_counter()
+    with quiet:
+        track_poses(fit_dir, ori, smooth=1, device=dev)
+    pnp_s = time.perf_counter() - t
+    err_pnp, d_pnp = _saved_lan_err(model, params, lms, c)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fit = track_poses(fit_dir, ori, smooth=1, model=model,
+                          downscale=FIT_DOWNSCALE,
+                          photometric_iters=FIT_ITERS, device=dev)
+    fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    err_fit, d = _saved_lan_err(model, params, lms, c)
+    walls = fit["stage_seconds"]
+    log(f"[{card}] photometric fit: {FIT_FRAMES} frames of the synthetic "
+        f"model ({len(model.tris)} triangles) rendered at {SIZE}x{SIZE} and "
+        f"written by nvJPEG in {seq_s:.2f} s (last frame {covered:.3f} "
+        f"covered); track_poses PnP alone {pnp_s:.2f} s (focal "
+        f"{d_pnp['focal'][0]:.0f}), with the model at downscale "
+        f"{FIT_DOWNSCALE} and iters {FIT_ITERS} {fit_s:.2f} s (stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; peak card memory {peak / 2**20:.1f} MiB); saved landmark "
+        f"error {err_fit:.4f} px against PnP's {err_pnp:.4f}; max |exp| "
+        f"{np.abs(d['exp']).max():.4f}, |light| {np.abs(d['light']).max():.4f}"
+        f", |id| {np.abs(d['id']).max():.4f}; stage losses "
+        f"{ {k: round(v, 5) for k, v in fit['stage_losses'].items()} }")
+    if not (np.abs(d["exp"]).max() > 1e-3 and np.abs(d["light"]).max() > 1e-3
+            and err_fit <= err_pnp + 1e-3):
+        raise AssertionError("the photometric fit did not improve on PnP")
+
+    # the fit's inputs at 128x128, as the tracker made them
+    ds = FIT_DOWNSCALE
+    imgs = np.stack([cv_ops.resize_area(im, (SIZE // ds, SIZE // ds))
+                     for im in read_jpegs(
+                         [os.path.join(ori, f"{i}.jpg")
+                          for i in range(FIT_FRAMES)], dev).cpu().numpy()]
+                    ).astype(np.float32) / 255.0
+    focal = float(d["focal"][0]) / ds
+    start = dict(euler_init=np.zeros((FIT_FRAMES, 3), np.float32),
+                 trans_init=np.tile(np.array([0, 0, 0.9], np.float32),
+                                    (FIT_FRAMES, 1)))
+
+    def stage_c(steps):
+        return lambda: fit_photometric(
+            model, lms / ds, imgs, focal, c / ds, c / ds,
+            iters=(1, 1, steps, 0), device=dev, **start)
+    one, two = profile_runs(stage_c(1), n=1), profile_runs(stage_c(2), n=1)
+    log(f"[{card}] one stage-C step ({min(32, FIT_FRAMES)} frames at "
+        f"{SIZE // ds}x{SIZE // ds}; the difference of two profiled fits "
+        f"with 1 and 2 stage-C steps): "
+        f"{two['device_ms'] - one['device_ms']:.3f} ms of device kernels in "
+        f"{two['launches'] - one['launches']:.0f} launches; wall "
+        f"{two['wall_ms'] - one['wall_ms']:.3f} ms under the profiler")
+    for kname, count, ms in two["kernels"][:5]:
+        log(f"  device {ms:8.3f} ms {count:6.0f}x  {kname}")
+
+    # (b) the fit on the card against the CPU, on the same inputs
+    sub = slice(0, FIT_CHECK_FRAMES)
+    kw = dict(euler_init=start["euler_init"][sub],
+              trans_init=start["trans_init"][sub], iters=FIT_CHECK_ITERS)
+    t = time.perf_counter()
+    got = fit_photometric(model, lms[sub] / ds, imgs[sub], focal, c / ds,
+                          c / ds, device=dev, **kw)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = fit_photometric(model, lms[sub] / ds, imgs[sub], focal, c / ds,
+                           c / ds, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t
+    errs = {k: float(np.abs(got[k] - want[k]).max()
+                     / max(np.abs(want[k]).max(), 1e-12))
+            for k in ("id", "exp", "tex", "euler", "trans", "light")}
+    log(f"[{card}] fit_photometric iters {FIT_CHECK_ITERS} on "
+        f"{FIT_CHECK_FRAMES} frames at {SIZE // ds}x{SIZE // ds}: card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; card vs CPU of scale "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (rtol {FIT_RTOL}); "
+        f"landmark error {got['lan_err_px']:.5f} vs "
+        f"{want['lan_err_px']:.5f} px")
+    if max(errs.values()) > FIT_RTOL:
+        raise AssertionError(f"the fit on the card differs from the CPU's: "
+                             f"{errs}")
+
+    # (c) process --task 8 with a morphable model, on phase 16's capture
+    base, video = seam["base"], seam["video"]
+    os.makedirs(os.path.join(base, "3DMM"), exist_ok=True)
+    save_model(os.path.join(base, "3DMM", "3dmm_model.npz"), model)
+    cmd = [sys.executable, "-m", "instag_torch.data_utils.process", video,
+           "--task", "8", "--device", dev.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    task8_s = time.perf_counter() - t
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    for line in (lines[-30:] if proc.returncode else lines):
+        log(f"  process | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"process --task 8 exited {proc.returncode}")
+    tp = dict(np.load(os.path.join(base, "track_params.npz")))
+    total = SEAM_FRAMES + SEAM_VAL
+    log(f"[{card}] process --task 8 with 3DMM/3dmm_model.npz on phase 16's "
+        f"capture: exit 0 in {task8_s:.2f} s as a process; exp "
+        f"{tp['exp'].shape}, max |id| {np.abs(tp['id']).max():.4f}, |exp| "
+        f"{np.abs(tp['exp']).max():.4f}, |light| "
+        f"{np.abs(tp['light']).max():.4f}")
+    if not (tp["euler"].shape == (total, 3) and tp["exp"].shape == (total, 79)
+            and tp["light"].shape == (total, 27)
+            and all(np.abs(tp[k]).max() > 0 for k in ("id", "exp", "light"))
+            and all(np.isfinite(v).all() for v in tp.values())):
+        raise AssertionError("task 8 wrote no fit")
+
+    # (d) tasks 4, 7 and 11 through the learned extractors, random weights
+    # from a seed in the public checkpoints' layouts, on a copy of the
+    # capture
+    torch.manual_seed(0)
+    wdir = os.path.join(tmp.name, "weights")
+    os.makedirs(wdir)
+    nets = {"fan": build_fan(4), "bisenet": BiSeNet(),
+            "fpn": EasyPortraitFPN()}
+    paths = {k: os.path.join(wdir, f"{k}.pth") for k in nets}
+    torch.save(nets["fan"].state_dict(), paths["fan"])
+    torch.save(nets["bisenet"].state_dict(), paths["bisenet"])
+    torch.save({"state_dict": nets["fpn"].state_dict()}, paths["fpn"])
+    del nets
+    env = {"INSTAG_FAN_WEIGHTS": paths["fan"],
+           "INSTAG_BISENET_WEIGHTS": paths["bisenet"],
+           "INSTAG_EASYPORTRAIT_FPN": paths["fpn"],
+           "INSTAG_TEETH_MODEL": os.path.join(wdir, "absent.pt")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    copies = {"4": (os.path.join(tmp.name, "capture"), total),
+              "11": (os.path.join(tmp.name, "capture"), total),
+              "7": (os.path.join(tmp.name, "tracked"), FAN_TRACK_FRAMES)}
+    for d, n in set(copies.values()):
+        os.makedirs(os.path.join(d, "ori_imgs"))
+        for i in range(n):
+            shutil.copy(os.path.join(base, "ori_imgs", f"{i}.jpg"),
+                        os.path.join(d, "ori_imgs"))
+    walls = {}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            for task, (d, _) in copies.items():
+                walls.update(P.main([os.path.join(d, "v.avi"), "--task",
+                                     task, "--device", dev.type]))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    copy, tracked = copies["4"][0], copies["7"][0]
+    parsing = [read_png(os.path.join(copy, "parsing", f"{i}.png"), 3)
+               for i in range(total)]
+    marks = [np.loadtxt(os.path.join(tracked, "ori_imgs", f"{i}.lms"))
+             for i in range(FAN_TRACK_FRAMES)]
+    teeth = [np.load(os.path.join(copy, "teeth_mask", f"{i}.npy"))
+             for i in range(total)]
+    if not (all(p.shape == (SIZE, SIZE, 3) and p.dtype == np.uint8
+                for p in parsing)
+            and all(x.shape == (68, 2) and np.isfinite(x).all()
+                    for x in marks)
+            and all(x.shape == (SIZE, SIZE) and x.dtype == bool
+                    for x in teeth)):
+        raise AssertionError("tasks 4, 7 and 11 wrote malformed files")
+
+    # each network's raw output on 2 frames, card against CPU, and the
+    # files of the first frames made on the CPU
+    cpu = torch.device("cpu")
+    frames = read_jpegs([os.path.join(copy, "ori_imgs", f"{i}.jpg")
+                         for i in range(total)], dev).cpu().numpy()
+    fan = {x: load_fan(paths["fan"], x) for x in (dev, cpu)}
+    bis = {x: load_bisenet(paths["bisenet"], x) for x in (dev, cpu)}
+    fpn = {x: load_fpn_fp(paths["fpn"], x) for x in (dev, cpu)}
+    s = SIZE * 0.8
+    box = bbox_to_center_scale([c - s / 2, c - s / 2, c + s / 2, c + s / 2])
+    outs = {"fan": lambda net, img: LandmarkTracker(net, device=next(
+                net.parameters()).device).heatmaps(img, *box),
+            "bisenet": parsing_logits, "fpn": segment_logits}
+    net_err = {}
+    for name, pair in (("fan", fan), ("bisenet", bis), ("fpn", fpn)):
+        err = 0.0
+        for img in frames[:2]:
+            a = np.asarray(torch.as_tensor(outs[name](pair[dev], img)).cpu())
+            b = np.asarray(torch.as_tensor(outs[name](pair[cpu], img)))
+            err = max(err, float(np.abs(a - b).max() / np.abs(b).max()))
+        net_err[name] = err
+    order = sorted(f for f in os.listdir(os.path.join(tracked, "ori_imgs"))
+                   if f.endswith(".jpg"))[:NET_CPU_FRAMES]
+    tracker = LandmarkTracker(fan[cpu], device=cpu)
+    same_lms = same_px = same_teeth = n_px = 0
+    for f in order:
+        i = int(f.split(".")[0])
+        same_lms += int((np.abs(tracker(frames[i]) - marks[i]) < 1e-6).all(
+            -1).sum())
+        logits = parsing_logits(bis[cpu], frames[i]).argmax(0).numpy()
+        color = cv_ops.resize_nearest(colorize_parsing(logits.astype(
+            np.uint8)), (SIZE, SIZE))[..., ::-1]
+        same_px += int((color == parsing[i]).all(-1).sum())
+        cls = segment_logits(fpn[cpu], frames[i]).argmax(0).numpy()
+        same_teeth += int(((cls == 7) == teeth[i]).sum())
+        n_px += SIZE * SIZE
+    x_fan = torch.zeros((1, 3, 256, 256), device=dev)
+    x_img = torch.zeros((1, 3, SIZE, SIZE), device=dev)
+    with torch.no_grad():
+        ms = {"fan (256x256 crop)": cuda_ms(lambda: fan[dev](x_fan), reps=3,
+                                            rounds=3, warmup=1),
+              "bisenet": cuda_ms(lambda: bis[dev](x_img), reps=3, rounds=3,
+                                 warmup=1),
+              "fpn": cuda_ms(lambda: fpn[dev](x_img), reps=3, rounds=3,
+                             warmup=1)}
+    log(f"[{card}] tasks 4, 7, 11 through the extractors (random weights, "
+        f"seed 0) on a copy of phase 16's capture: {total} frames for tasks "
+        f"4 and 11, the first {FAN_TRACK_FRAMES} for task 7; last box "
+        f"tracked {np.ptp(marks[-1], 0).round(1)} px wide and high; "
+        f"task walls {({k: round(v, 3) for k, v in walls.items()})} s; "
+        f"files well-formed; raw outputs card vs CPU on 2 frames, of scale "
+        f"{ {k: f'{v:.2e}' for k, v in net_err.items()} } (tolerance "
+        f"{NET_TOL}); against the CPU on the first {len(order)} frames of "
+        f"the tracking order: landmarks {same_lms}/{68 * len(order)} equal "
+        f"(to 1e-6 px), parsing pixels {same_px}/{n_px}, teeth pixels "
+        f"{same_teeth}/{n_px}; ms a frame at {SIZE}x{SIZE} on the card "
+        f"(fp32, TF32 off): "
+        f"{ {k: round(v, 3) for k, v in ms.items()} }")
+    if max(net_err.values()) > NET_TOL:
+        raise AssertionError(f"a network on the card differs from the CPU: "
+                             f"{net_err}")
     tmp.cleanup()
-    return launches
+    log(f"[{card}] phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2616,16 +3000,30 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
-    # ---- 2. build ---------------------------------------------------------
+    # ---- 2. build, beside phases 16 and 17 -------------------------------
+    # The splat kernels take minutes to compile, and the preprocessing chain
+    # and the photometric fit need only the JPEG codec until phase 16's
+    # training run: they run first, while nvcc compiles the rest.
     t0 = time.perf_counter()
-    built = kernels.build(SOURCES + ["jpeg_codec"])
-    log(f"build: {time.perf_counter() - t0:.1f} s wall; per source "
-        f"{ {k: round(v, 1) for k, v in built.items()} } (0 entries: cached)")
-    for src in SOURCES:
-        with open(kernels.library_path(src) + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {src}:", line.strip())
+    built = kernels.build(["jpeg_codec"])
+    compiling = concurrent.futures.ThreadPoolExecutor(1).submit(
+        lambda: (kernels.build(SOURCES), time.perf_counter() - t0))
+
+    # ---- 16. the preprocessing chain, and before its training run (which
+    # needs the kernels) 17. the photometric fit and the learned extractors
+    def before_training(capture):
+        photometric_and_extractors(card, dev, capture)
+        per_source, wall = compiling.result()
+        times = {k: round(v, 1) for k, v in {**built, **per_source}.items()}
+        log(f"build: {wall:.1f} s wall (beside phases 16-17); per source "
+            f"{times} (0 entries: cached)")
+        for src in SOURCES:
+            with open(kernels.library_path(src) + ".log") as f:
+                for line in f:
+                    if "registers" in line or "spill" in line:
+                        log(f"  ptxas {src}:", line.strip())
+    seam = preprocessing_seam(card, dev, before_training)
+    seam["tmp"].cleanup()
 
     # ---- model at full width ------------------------------------------------
     cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
@@ -2919,8 +3317,7 @@ def main() -> int:
     later["static_training"] = static["launches"]
     static_t = static["timed"]
 
-    # ---- 16. the preprocessing chain ----------------------------------------
-    later["preprocessing_seam"] = preprocessing_seam(card, dev)
+    later["preprocessing_seam"] = seam["launches"]
 
     face_t, wide_t = timed["face"], timed["wide"]
     bwd_err = max(c["bwd_err"] for c in train_cases.values())

@@ -142,7 +142,7 @@ def main(argv=None) -> dict:
             gt_lms = load_gt_landmarks(
                 mc.source_path, [r.img_id for r in val_records[:n]])
             if gt_lms is not None:
-                pred_lms = track_video_landmarks(video[:n])
+                pred_lms = track_video_landmarks(video[:n], dev)
                 if pred_lms is not None:
                     scores["lmd"] = lmd_from_landmarks(pred_lms, gt_lms)
             path = os.path.join(mc.model_path, "metrics.json")

@@ -8,9 +8,10 @@ files are given.
 
 A ``.npz`` input holds the frames [T, H, W, 3] uint8 under ``video`` (as
 ``synthesize.write_video`` writes them without OpenCV); any other path is
-decoded with OpenCV, which must be installed. ``--track`` asks for the
-rendered frames' landmarks (``metrics.track_video_landmarks``: the FAN
-tracker is not in the port, so it says so and the LMD is left out). Prints
+decoded with OpenCV, which must be installed. ``--track`` tracks both
+videos' landmarks with the FAN tracker (``metrics.track_video_landmarks``,
+weights from ``INSTAG_FAN_WEIGHTS``; without them it says so and the LMD
+is left out). Prints
 ``metrics.evaluate_frames``'s JSON.
 """
 
@@ -58,8 +59,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--lms_gt", default="")
     parser.add_argument("--track", action="store_true",
                         help="track landmarks on both videos for the LMD "
-                             "(the FAN tracker is not in the port: says so "
-                             "and leaves the LMD out)")
+                             "with the FAN tracker (INSTAG_FAN_WEIGHTS)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -71,8 +71,8 @@ def main(argv=None) -> dict:
     lp = _load_lms_dir(args.lms_pred) if args.lms_pred else None
     lg = _load_lms_dir(args.lms_gt) if args.lms_gt else None
     if args.track and lp is None:
-        lp = track_video_landmarks(pred[:t])
-        lg = track_video_landmarks(gt[:t]) if lp is not None else None
+        lp = track_video_landmarks(pred[:t], dev)
+        lg = track_video_landmarks(gt[:t], dev) if lp is not None else None
     if lp is not None and lg is not None:
         tl = min(len(lp), len(lg))
         lp, lg = lp[:tl], lg[:tl]

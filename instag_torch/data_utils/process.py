@@ -12,12 +12,15 @@ json (10: the split.py variant, the last 12 s as val), 11 teeth masks,
 JPEGs decode and encode on ``--device`` (nvJPEG on the card, PIL on the
 CPU; ``data/image_io.py``) and PNGs through ``image_io``'s own codec; the
 background plate, the torso columns and the blur are numpy and scipy on the
-host, the pose solve and the AVE encoder run on the device. An MJPEG AVI
-(what ``data.synthetic_hard.render_hard_video`` and OpenCV's MJPG writer
-write) is demuxed by ``io.avmux.read_avi_mjpeg``; another container needs
-OpenCV. Tasks 4, 7 and 11 need learned extractors that are not ported yet
-(ROADMAP.md "Still to port", item 3), so they run only from a
-``--synthetic_gt`` stub; task 12 is refused.
+host; the pose solve, the photometric 3DMM fit, the AVE encoder and the
+learned extractors (BiSeNet for task 4, FAN for task 7, the EasyPortrait
+FPN or a TorchScript segmentor for task 11, sapiens for task 12) run on the
+device, with OpenCV's resizes done by ``cv_ops``. Each extractor names the
+environment variable of its weights and raises without them;
+``--synthetic_gt`` takes tasks 4, 7 and 11 from a generator's stub
+instead. An MJPEG AVI (what ``data.synthetic_hard.render_hard_video`` and
+OpenCV's MJPG writer write) is demuxed by ``io.avmux.read_avi_mjpeg``;
+another container needs OpenCV.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ from ..data.image_io import (decode_jpegs, jpeg_size, read_jpegs, read_png,
                              write_jpeg, write_png)
 from ..device import resolve_device
 from ..io.avmux import read_avi_mjpeg
+from .face_parsing import run_parsing
+from .landmarks import extract_landmarks_fan
+from .priors import create_teeth_masks, run_sapiens
 
 FRAME_CHUNK = 32        # frames a task decodes on the device at a time
 ORI_QUALITY = 98        # ori_imgs/*.jpg, as the JAX package writes them
@@ -318,7 +324,8 @@ def extract_torso_and_gt(base_dir: str, ori_imgs_dir: str,
 
 def face_tracking(base_dir: str, ori_imgs_dir: str,
                   device: str | torch.device = "cuda") -> None:
-    """Task 8: head pose from the landmarks (``tracker.track_poses``)."""
+    """Task 8: head pose from the landmarks, and the photometric 3DMM fit
+    where a morphable model is found (``tracker.track_poses``)."""
     from .tracker import track_poses
     track_poses(base_dir, ori_imgs_dir, device=device)
 
@@ -431,8 +438,8 @@ def main(argv=None) -> dict:
                              "teeth) and au.csv by copying the generator's "
                              "exact masks")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="where JPEGs, the pose solve and the AVE "
-                             "encoder run (cuda or cpu)")
+                        help="where JPEGs, the pose solve, the fit, the AVE "
+                             "encoder and the extractors run (cuda or cpu)")
     opt = parser.parse_args(argv)
     dev = resolve_device(opt.device)
 
@@ -444,17 +451,6 @@ def main(argv=None) -> dict:
     os.makedirs(parsing_dir, exist_ok=True)
 
     t, gt = opt.task, opt.synthetic_gt
-    if t in (-1, 4, 7, 11) and not gt:
-        raise RuntimeError(
-            "tasks 4, 7 and 11 (semantic parsing, landmarks, teeth masks) "
-            "need learned extractors that are not ported yet (ROADMAP.md "
-            "'Still to port', item 3); pass --synthetic_gt <stub> to take "
-            "them from a synthetic-GT stub")
-    if t == 12:
-        raise RuntimeError(
-            "task 12 (sapiens geometry priors) is not ported yet (ROADMAP.md "
-            "'Still to port', item 3)")
-
     walls = {}
 
     def run(task, fn, *args):
@@ -467,12 +463,18 @@ def main(argv=None) -> dict:
     run(1, extract_audio, opt.path, wav_path)
     run(2, extract_audio_features, wav_path, opt.asr, dev)
     run(3, extract_images, opt.path, ori_imgs_dir, 25, dev)
-    run(4, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
-        "parsing")
+    if gt:
+        run(4, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
+            "parsing")
+    else:
+        run(4, run_parsing, ori_imgs_dir, parsing_dir, dev)
     run(5, extract_background, base_dir, ori_imgs_dir, dev)
     run(6, extract_torso_and_gt, base_dir, ori_imgs_dir, dev)
-    run(7, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
-        "landmarks")
+    if gt:
+        run(7, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
+            "landmarks")
+    else:
+        run(7, extract_landmarks_fan, ori_imgs_dir, dev)
     run(8, face_tracking, base_dir, ori_imgs_dir, dev)
 
     def transforms():
@@ -483,8 +485,13 @@ def main(argv=None) -> dict:
     run(9, transforms)
     if t == 10:
         run(10, save_transforms, base_dir, ori_imgs_dir, 12)
-    run(11, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
-        "teeth")
+    if gt:
+        run(11, _copy_synthetic_gt, gt, base_dir, ori_imgs_dir, parsing_dir,
+            "teeth")
+    else:
+        run(11, create_teeth_masks, base_dir, ori_imgs_dir, True, dev)
+    if t == 12:
+        run(12, run_sapiens, base_dir, 500, dev)
     return walls
 
 

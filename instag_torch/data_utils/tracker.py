@@ -1,5 +1,5 @@
-"""Head-pose tracking from landmarks (task 8; counterpart of
-instag_tpu/data_utils/tracker.py, its PnP path).
+"""Head-pose and 3DMM tracking (task 8; counterpart of
+instag_tpu/data_utils/tracker.py).
 
   1. a focal-length grid search (600-1400 px) by the mean landmark
      reprojection error of a frame subset;
@@ -15,14 +15,17 @@ Levenberg-Marquardt iterations on the reprojection error with every point
 kept in front of the camera, in float64 on ``device``; every frame at every
 focal candidate in one batch, with no host read inside the loop.
 
-A 3D morphable model (``model_path``, ``INSTAG_3DMM`` or
-``<base>/3DMM/3dmm_model.npz``) would start the JAX package's photometric
-fit; that fit is not ported yet (ROADMAP.md "Still to port", item 2), and
-the tracker refuses to run without it rather than skip it.
+With a 3D morphable model (``model`` given, or found at ``model_path``,
+``INSTAG_3DMM`` or ``<base>/3DMM/3dmm_model.npz``; ``face_model.
+convert_bfm_info`` converts the reference's ``3DMM_info.npy``), the
+photometric fit (``photometric.fit_photometric``) follows from the PnP
+poses on the frames downscaled by ``downscale`` (OpenCV's ``INTER_AREA``,
+``cv_ops.resize_area``): it refines the poses and fills id, exp and light,
+and the translations are then not smoothed again.
 
 Output: track_params.npz with {euler [N,3], trans [N,3] (stored x10 like
-the reference), focal [1], id [100], exp [N,79], light [N,27]}; the PnP
-path leaves id, exp and light at zero.
+the reference), focal [1], id [100], exp [N,79], light [N,27]}; without
+a model id, exp and light stay zero.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ import os
 import numpy as np
 import torch
 
-from ..data.image_io import jpeg_size
+from ..data.image_io import jpeg_size, read_jpegs
 from ..device import resolve_device
+from . import cv_ops
 
 LM_ITERS = 40      # Levenberg-Marquardt iterations of a solve
 
@@ -247,17 +251,14 @@ def _find_model(base_dir: str, model_path: str | None) -> str | None:
 def track_poses(base_dir: str, ori_imgs_dir: str,
                 focal_candidates=range(600, 1500, 100),
                 smooth: int = 5, model_path: str | None = None,
-                device: str | torch.device = "cuda") -> None:
+                photometric_iters=(400, 600, 60, 40),
+                downscale: int = 4, model=None,
+                device: str | torch.device = "cuda") -> dict | None:
     """Write ``<base_dir>/track_params.npz`` from the ``.lms`` landmark
     files under ``ori_imgs_dir`` (the frames' size from the first's JPEG),
-    the PnP solved on ``device``."""
-    mpath = _find_model(base_dir, model_path)
-    if mpath is not None:
-        raise NotImplementedError(
-            f"a 3D morphable model was found at {mpath}, but the "
-            "photometric 3DMM fit is not ported yet (ROADMAP.md 'Still to "
-            "port', item 2: face_model, mesh_render, photometric); move the "
-            "model away to track the pose from landmarks alone")
+    the PnP and the photometric fit on ``device``. Returns the fit's
+    result (None without a model)."""
+    dev = resolve_device(device)
     lms_paths = sorted(glob.glob(os.path.join(ori_imgs_dir, "*.lms")),
                        key=lambda p: int(os.path.basename(p).split(".")[0]))
     if not lms_paths:
@@ -269,11 +270,12 @@ def track_poses(base_dir: str, ori_imgs_dir: str,
     cx, cy = w / 2.0, h / 2.0
     rigid_obj = canonical_landmarks_3d()[_RIGID]
     n, focals = len(lms), np.asarray(list(focal_candidates), np.float64)
+    mpath = None if model is not None else _find_model(base_dir, model_path)
 
     # every frame at every focal candidate, in one batch
     R, t, err = solve_pnp(rigid_obj, np.tile(lms[:, _RIGID], (len(focals),
                                                                1, 1)),
-                          np.repeat(focals, n), cx, cy, device=device)
+                          np.repeat(focals, n), cx, cy, device=dev)
     R = R.reshape(len(focals), n, 3, 3)
     t = t.reshape(len(focals), n, 3)
     err = err.reshape(len(focals), n)
@@ -301,6 +303,38 @@ def track_poses(base_dir: str, ori_imgs_dir: str,
     exp_out = np.zeros((n, 79), np.float32)
     light_out = np.zeros((n, 27), np.float32)
 
+    # stage 3: the photometric 3DMM fit, from the PnP poses
+    fit = None
+    if model is not None or mpath is not None:
+        from .face_model import load_model
+        from .photometric import euler2rot, fit_photometric
+        if model is None:
+            model = load_model(mpath)
+        ds = max(1, downscale)
+        imgs = []
+        for chunk in range(0, n, 32):
+            for im in read_jpegs([p.replace(".lms", ".jpg")
+                                  for p in lms_paths[chunk:chunk + 32]],
+                                 dev).cpu().numpy():
+                if ds > 1:
+                    im = cv_ops.resize_area(im, (w // ds, h // ds))
+                imgs.append(im.astype(np.float32) / 255.0)
+        fit = fit_photometric(
+            model, (lms / ds).astype(np.float32), np.stack(imgs),
+            best_focal / ds, cx / ds, cy / ds,
+            euler_init=rot2euler(Rs), trans_init=ts,
+            iters=photometric_iters, device=dev)
+        print(f"[tracker] photometric fit: landmark err "
+              f"{fit['lan_err_px'] * ds:.2f}px (was PnP {best_err:.2f}px)")
+        Rs = euler2rot(torch.as_tensor(fit["euler"])).numpy()
+        ts = fit["trans"].astype(np.float64)
+        nid = min(100, fit["id"].shape[0])
+        id_out[:nid] = fit["id"][:nid]
+        nexp = min(79, fit["exp"].shape[1])
+        exp_out[:, :nexp] = fit["exp"][:, :nexp]
+        light_out[:] = fit["light"]
+        smooth = 1  # the fine stage already smooths (rigid-vertex laplacian)
+
     # PnP gives world->COLMAP-camera (x right, y down, z forward); the
     # transforms json stores the OpenGL camera's, which the reader flips
     # back: negate the camera's y and z axes
@@ -323,3 +357,4 @@ def track_poses(base_dir: str, ori_imgs_dir: str,
              focal=np.array([best_focal], np.float32),
              id=id_out, exp=exp_out, light=light_out)
     print(f"[tracker] wrote track_params.npz for {n} frames")
+    return fit

@@ -2,11 +2,11 @@
 LPIPS over frame sequences, the mouth landmark distance (LMD) from
 landmark arrays, and the AU error of two OpenFace CSVs.
 
-The LMD of rendered frames needs a landmark tracker; the JAX package's
-FAN tracker (``instag_tpu/data_utils/landmarks.py``) is not in the port,
-so ``track_video_landmarks`` says so and returns None, as the JAX one does
-without its weights. The ground truth's landmarks are the dataset's
-``.lms`` files.
+The LMD of rendered frames comes from the FAN landmark tracker
+(``data_utils/landmarks.py``), which needs its weights
+(``INSTAG_FAN_WEIGHTS``); without them ``track_video_landmarks`` says so
+and returns None, as the JAX one does. The ground truth's landmarks are
+the dataset's ``.lms`` files.
 """
 
 from __future__ import annotations
@@ -63,12 +63,22 @@ def load_gt_landmarks(source_path: str, img_ids: list[int]
     return np.stack(out)
 
 
-def track_video_landmarks(frames: np.ndarray) -> np.ndarray | None:
-    """Landmarks of rendered frames: the FAN tracker is not in the port
-    (ROADMAP), so this says so and returns None."""
-    print("[metrics] LMD SKIPPED - the FAN landmark tracker is not in the "
-          "PyTorch port", flush=True)
-    return None
+def track_video_landmarks(frames: np.ndarray,
+                          device: str | torch.device = "cuda"
+                          ) -> np.ndarray | None:
+    """The FAN tracker's landmarks [T, 68, 2] of frames [T, H, W, 3] uint8
+    (the reference metrics.py LMDMeter protocol, which tracks both
+    videos), on ``device``; None, with a message, when the FAN weights are
+    not found."""
+    from .data_utils.landmarks import LandmarkTracker
+    dev = resolve_device(device)
+    try:
+        tracker = LandmarkTracker(device=dev)
+    except RuntimeError as e:           # no weights
+        print(f"[metrics] LMD SKIPPED — FAN landmark tracker unavailable: "
+              f"{e}", flush=True)
+        return None
+    return np.stack([tracker(np.asarray(f)) for f in frames])
 
 
 def lmd_from_landmarks(lms_a: np.ndarray, lms_b: np.ndarray) -> float:

@@ -67,7 +67,7 @@ def test_metrics_cli_matches_jax(videos, lpips_npz, capsys):  # noqa: F811
 
 def test_metrics_cli_track_and_video_inputs(videos, lpips_npz,  # noqa: F811
                                             capsys, monkeypatch):
-    """``--track`` says the tracker is missing and leaves the LMD out; a
+    """``--track`` without FAN weights says so and leaves the LMD out; a
     video path without OpenCV fails as the JAX CLI fails."""
     out = _run(t_metrics.main, ["--pred", videos["pred"], "--gt",
                                 videos["gt"], "--track", "--device", "cpu"],

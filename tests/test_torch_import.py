@@ -153,3 +153,59 @@ def test_static_slice_entry_points_default_to_the_card(monkeypatch,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())
+
+
+EXTRACTOR_MODULES = ["instag_torch.data_utils." + m for m in (
+    "cv_ops", "face_model", "mesh_render", "photometric", "tracker",
+    "landmarks", "face_parsing", "easyportrait_fpn", "priors", "process")]
+
+
+def test_preprocessing_modules_load_without_jax_or_opencv():
+    """The photometric fit's and the learned extractors' modules are in the
+    source scan, and load in a fresh process where OpenCV cannot import,
+    with no JAX."""
+    assert set(EXTRACTOR_MODULES) <= set(_modules())
+    code = ("import importlib, sys\n"
+            "sys.modules['cv2'] = None\n"
+            f"for m in {EXTRACTOR_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_preprocessing_entry_points_default_to_the_card(monkeypatch,
+                                                        tmp_path):
+    """Without a card the fit, the tracker with a model, the extractors and
+    their process tasks raise before they read or write anything."""
+    import numpy as np
+
+    from instag_torch.data_utils import (face_parsing, landmarks,
+                                         photometric, priors, process,
+                                         tracker)
+    from instag_torch.data_utils.face_model import synthetic_model
+    from instag_torch.metrics import track_video_landmarks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = tmp_path / "scene"
+    model = synthetic_model()
+    z = np.zeros((2, 3), np.float32)
+    for call in (
+            lambda: photometric.fit_photometric(
+                model, np.zeros((2, 68, 2)), np.zeros((2, 16, 16, 3)), 10.0,
+                8.0, 8.0, z, z),
+            lambda: tracker.track_poses(str(base), str(base), model=model),
+            lambda: landmarks.LandmarkTracker(),
+            lambda: landmarks.load_fan("absent.pth"),
+            lambda: face_parsing.run_parsing(str(base), str(base)),
+            lambda: priors.create_teeth_masks(str(base), str(base)),
+            lambda: priors.run_sapiens(str(base)),
+            lambda: track_video_landmarks(np.zeros((1, 8, 8, 3))),
+            *(lambda t=t: process.main([str(base / "v.avi"), "--task", t])
+              for t in ("4", "7", "8", "11", "12"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not any(tmp_path.iterdir())

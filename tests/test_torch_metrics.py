@@ -106,4 +106,5 @@ def test_au_error_and_landmarks_match_jax(tmp_path):
     np.testing.assert_array_equal(TMet.load_gt_landmarks(scene, ids),
                                   JMet.load_gt_landmarks(scene, ids))
     assert TMet.load_gt_landmarks(scene, [999]) is None
-    assert TMet.track_video_landmarks(np.zeros((1, 8, 8, 3))) is None
+    assert TMet.track_video_landmarks(np.zeros((1, 8, 8, 3)),
+                                      device="cpu") is None

@@ -161,12 +161,19 @@ def test_extract_images_from_mjpeg_avi(tmp_path, src_fps):
 
 
 def test_refusals_name_the_roadmap(tmp_path, monkeypatch):
+    """Without their weights the learned extractors' tasks raise the JAX
+    package's messages, which name the weights to provide."""
+    for var in ("INSTAG_BISENET_WEIGHTS", "INSTAG_FAN_WEIGHTS",
+                "INSTAG_SAPIENS_DEPTH", "INSTAG_SAPIENS_NORMAL"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.chdir(tmp_path)          # no weights/ directory
     video = str(tmp_path / "v.avi")
     for argv, match in (([video, "--task", "4", "--device", "cpu"],
-                         "item 3"),
-                        ([video, "--device", "cpu"], "synthetic_gt"),
+                         "INSTAG_BISENET_WEIGHTS"),
+                        ([video, "--task", "7", "--device", "cpu"],
+                         "INSTAG_FAN_WEIGHTS"),
                         ([video, "--task", "12", "--device", "cpu"],
-                         "item 3")):
+                         "INSTAG_SAPIENS_DEPTH")):
         with pytest.raises(RuntimeError, match=match):
             TP.main(argv)
     # a container other than an MJPEG AVI, with OpenCV missing
@@ -175,3 +182,46 @@ def test_refusals_name_the_roadmap(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="MJPEG AVI"):
         TP.extract_images(str(tmp_path / "v.mp4"), str(tmp_path / "o"),
                           device="cpu")
+
+
+def test_every_task_runs_without_a_stub(tmp_path, monkeypatch):
+    """``process --task -1`` on the CPU runs tasks 1-11 with no
+    ``--synthetic_gt``: the extractors from random-weight checkpoints
+    named by their environment variables, the photometric fit from a
+    synthetic model under ``3DMM/``; ``track_params.npz`` then holds
+    non-zero id, exp and light."""
+    import torch
+
+    from instag_torch.data.synthetic_hard import render_hard_video
+    from instag_torch.data_utils.easyportrait_fpn import EasyPortraitFPN
+    from instag_torch.data_utils.face_model import save_model, synthetic_model
+    from instag_torch.data_utils.face_parsing import BiSeNet
+    from instag_torch.data_utils.landmarks import build_fan
+
+    torch.manual_seed(0)
+    for var, net in (("INSTAG_FAN_WEIGHTS", build_fan(1)),
+                     ("INSTAG_BISENET_WEIGHTS", BiSeNet()),
+                     ("INSTAG_EASYPORTRAIT_FPN", EasyPortraitFPN())):
+        path = str(tmp_path / f"{var}.pth")
+        torch.save(net.state_dict(), path)
+        monkeypatch.setenv(var, path)
+    monkeypatch.setenv("INSTAG_TEETH_MODEL", str(tmp_path / "absent.pt"))
+    video, _ = render_hard_video(str(tmp_path / "cap"), n_frames=4, size=64,
+                                 n_val=1, supersample=1, device="cpu")
+    base = os.path.dirname(video)
+    os.makedirs(os.path.join(base, "3DMM"))
+    save_model(os.path.join(base, "3DMM", "3dmm_model.npz"),
+               synthetic_model())
+    walls = TP.main([video, "--task", "-1", "--device", "cpu"])
+    assert sorted(walls) == list(range(1, 10)) + [11]
+    d = np.load(os.path.join(base, "track_params.npz"))
+    assert d["exp"].shape == (5, 79)
+    for k in ("id", "exp", "light"):
+        assert np.abs(d[k]).max() > 0 and np.isfinite(d[k]).all(), k
+    for i in range(5):
+        for rel in (f"parsing/{i}.png", f"ori_imgs/{i}.lms",
+                    f"teeth_mask/{i}.npy", f"gt_imgs/{i}.jpg",
+                    f"torso_imgs/{i}.png"):
+            assert os.path.exists(os.path.join(base, rel)), rel
+    for f in ("transforms_train.json", "transforms_val.json", "bc.jpg"):
+        assert os.path.exists(os.path.join(base, f)), f

@@ -5,7 +5,8 @@ Levenberg-Marquardt PnP reaches OpenCV's EPnP + ``solvePnPRefineLM``
 minimum frame by frame at every focal tried (rotation to 1e-6 rad,
 translation to 1e-6 relative, mean reprojection error to 1e-4 px), the
 tracker picks the same focal and writes ``track_params.npz`` within 1e-5
-of the JAX tracker's, and a 3D morphable model makes it refuse to run."""
+of the JAX tracker's, and a 3D morphable model found under ``3DMM/``
+starts the photometric fit."""
 
 import os
 import shutil
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 
 from instag_tpu.data_utils.tracker import track_poses as j_track_poses
+from instag_torch.data_utils.face_model import save_model, synthetic_model
 from instag_torch.data_utils.tracker import (_RIGID, canonical_landmarks_3d,
                                              solve_pnp, track_poses)
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -102,10 +104,17 @@ def test_same_focal_and_params_as_jax(tracked):
 
 
 def test_a_morphable_model_is_refused(tracked, tmp_path):
+    """A model at ``<base>/3DMM/3dmm_model.npz`` is found and fitted: id,
+    exp and light come out non-zero (a few steps of each stage)."""
     _, ours, _ = tracked
     base = str(tmp_path / "scene")
     shutil.copytree(ours, base)
     os.makedirs(os.path.join(base, "3DMM"))
-    open(os.path.join(base, "3DMM", "3dmm_model.npz"), "wb").close()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        track_poses(base, os.path.join(base, "ori_imgs"), device="cpu")
+    save_model(os.path.join(base, "3DMM", "3dmm_model.npz"),
+               synthetic_model())
+    fit = track_poses(base, os.path.join(base, "ori_imgs"),
+                      photometric_iters=(4, 4, 2, 2), device="cpu")
+    d = np.load(os.path.join(base, "track_params.npz"))
+    assert fit is not None and d["exp"].shape == (N, 79)
+    for k in ("id", "exp", "light"):
+        assert np.abs(d[k]).max() > 0, k

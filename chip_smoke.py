@@ -81,7 +81,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
      the times of the scene read and the bundle round trip;
  13. the adaptation CLIs at full width (``ModelConfig()``, K=256, deepspeech
      nets) on phase 12's scene: ``python -m instag_torch.cli.adapt`` as a
-     subprocess (100 face and 100 mouth steps, 100 fusion steps, the val
+     subprocess (40 face and 40 mouth steps, 40 fusion steps, the val
      clip with its variants and PLYs, ``metrics.json`` with finite PSNR
      and LPIPS and its ``lpips_real`` flag); in process, ``cli.train_face``
      for 50 steps, then ``--start_checkpoint`` to 100 in another run
@@ -103,7 +103,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
      ``train.pretrain.pretrain_face`` for 1050 steps an identity (100 of
      warm-up an identity, densification from 25 every 25, the green
      prune after each, SH bumps at 1000 and 2000, log points every 250),
-     then ``pretrain_mouth`` under its result for 300 steps an identity:
+     then ``pretrain_mouth`` under its result for 200 steps an identity:
      finite losses that fall, one launch of each kernel per step, a
      densification that changed the live count; one face motion step
      without its D-SSIM term (noise over the background-green windows)
@@ -134,7 +134,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
      with named Adam groups through ``torch.save`` and ``convert_capture``
      on the card (its render bit-equal, its moments equal), densifications,
      one profiled step and the three kernels at this shape (C=8, A=0)
-     against their plain versions, with times; the brute-force oracle
+     against their plain versions, with times (the forward held to 1e-4
+     at every pixel off the transmittance cut: the pixels whose plain-walk
+     transmittance after a splat lies within 64 float32 ulps of 1e-4 are
+     counted and logged, at most 64 allowed); the brute-force oracle
      (``ops.reference_splat``, bbox_sigma 4) against the kernel path at
      128x128 with 2000 splats at SH degree 1 under the JAX suite's bounds,
      ``cov3d_precomp`` against scales and rotations (1e-5); and the AVE
@@ -181,12 +184,33 @@ Phases (any failure exits non-zero, and the result line is not printed):
      file's shape and dtype; each network's raw output on 2 frames against
      the CPU (1e-4 of scale); how many landmarks and pixels of the first 2
      frames agree with the CPU's; ms a frame of each network.
+ 18. the parallel modes (``instag_torch/parallel/``) at phase 7's width:
+     (a) a ``--data_parallel 4`` face step on the card (``make_face_step(
+     dp=4)``): its loss the mean of four single-frame steps' (rtol 1e-5),
+     its Gaussian, UMF and PMF gradients their mean (phase 7's tolerance),
+     its statistics their sum, 4 launches of each kernel; ms a step
+     against 4x phase 8's; (b) ``cli.train_face --data_parallel 4`` in
+     process on phase 16's scene for 24 steps: finite losses, a bundle
+     with the manifest's keys, ms a step; (c) 2 ranks sharing the card
+     over gloo (``parallel.launch.start``, under its own time limit):
+     the dp=4 step at W=2 (2 frames a rank) within fp32 summation order of
+     (a), replicas bit-identical; one identity-parallel face motion step
+     on phase 14's two identities, each rank's loss equal to the serial
+     step's, the UMF bit-identical, rank 0's ``save_bundle_multihost``
+     read back; a ``rasterize_tensor_parallel`` 512x512 frame, forward and
+     backward, its bands, radii and gradients against the single-card
+     rasterize (``tests/test_tensor_parallel.py``'s tolerances); (d) one
+     rank over NCCL (world size 1, a file rendezvous): the dp=4 loss
+     bit-equal to (a)'s, gradients within fp32 summation order (the
+     scatter adds by atomics). Each phase's start is logged as
+     ``[t=... s]``.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import csv
@@ -198,6 +222,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -215,6 +240,8 @@ BWD_ATOL_FRAC = 1e-4     # this fraction of the largest |plain| term
 GRAD_RTOL = 2e-3         # kernel step vs plain-autograd step gradients, on
 GRAD_ATOL_FRAC = 5e-4    # top of this fraction of each tensor's max |g|
 SCATTER_TOL = 1e-5       # atomics: the order of the adds changes per run
+EDGE_MAX_SHARE = 0.01    # phase 15: at most 1 % of the pixels on the cut
+FLIP_RTOL = 1e-3         # T_final apart by more: a splat more or fewer
 WIDE_SPREAD = 0.8        # a cloud over the whole frame: every tile busy
 WIDE_SCALE = 0.01        # (~140k valid slots; the face cloud busies 36)
 WARMUP = 5
@@ -245,7 +272,7 @@ JPEG_PSNR_MIN = 40.0     # dB, nvJPEG q95 frames against the writer's arrays
 REUSE_PSNR_MIN = 40.0
 # phase 13: the adaptation CLIs
 BUNDLE_KEYS = "tests/torch_fixtures/bundle_keys.json"
-ADAPT_ITERS, ADAPT_FUSE_ITERS = 100, 100
+ADAPT_ITERS, ADAPT_FUSE_ITERS = 40, 40
 RESUME_AT, RESUME_TO = 50, 100       # train_face, then resumed to RESUME_TO
 CLI_MOUTH_ITERS, CLI_FUSE_ITERS = 50, 50
 RESUME_COMPARE, RESUME_RTOL = 20, 1e-3   # losses: CLI vs in process
@@ -257,7 +284,7 @@ PRE_FRAMES = 16
 PRE_FACE_INIT, PRE_MOUTH_INIT = 2000, 5000
 PRE_FACE_OPT = dict(iterations=1050, densify_from_iter=25,
                     densification_interval=25)
-PRE_MOUTH_ITERS = 300
+PRE_MOUTH_ITERS = 200
 PRE_WARM_PER_ID = 100
 PRE_LOG_EVERY = 250
 PRE_CLI_ITERS = 20
@@ -434,10 +461,16 @@ def check_close(name, out, ref, rtol, atol_frac):
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite values")
     allow = atol_frac * max(1e-6, float(ref.abs().max())) + rtol * ref.abs()
-    worst = float(((out - ref).abs() / allow.clamp_min(1e-30)).max())
+    ratio = (out - ref).abs() / allow.clamp_min(1e-30)
+    worst = float(ratio.max())
     if not worst <= 1.0:
-        raise AssertionError(f"{name}: disagrees with its reference, "
-                             f"{worst:.2f}x the tolerance")
+        at = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+        raise AssertionError(
+            f"{name}: disagrees with its reference, {worst:.2f}x the "
+            f"tolerance at {tuple(int(i) for i in at)} (ours "
+            f"{float(out[at]):.6e}, reference {float(ref[at]):.6e}, "
+            f"max |reference| {float(ref.abs().max()):.6e}; "
+            f"{int((ratio > 1).sum())} of {ratio.numel()} elements over)")
     return worst
 
 
@@ -462,11 +495,44 @@ def fwd_check(label, feats, cnt, tiles_x, n_chan, n_aux):
     return pairs, max(err)
 
 
+def transmittance_edge(feats, cnt, tiles_x):
+    """[T, P] bool: the pixels where the kernel's walk and the plain walk
+    could disagree on whether a splat contributes. Both sum the same
+    log1p(-alpha) steps (the same float32 operations) and test exp(sum) >=
+    1e-4 with the same exp; they differ only in the order of the sum (the
+    kernel adds in slot order, the plain walk's cumsum as a scan). Each
+    order's partial sums all lie between 0 and the prefix S_j, so each
+    rounds n_j times (n_j the evaluated splats up to slot j) by at most
+    half an ulp of S_j: the two prefixes lie within n_j ulp(S_j) of each
+    other, and twice that allows a step's own last bit. A pixel is on the
+    edge where some evaluated slot's plain S_j lies within that band (and
+    2 ulp more for the exp) of ln(1e-4). Found from the plain walk's own
+    sums, never from the error; a pixel off the edge takes the same
+    splats on both walks (ROADMAP section 3)."""
+    from instag_torch.ops.composite import T_MIN, _chunks
+    cut = float(np.log(np.float32(T_MIN)))
+    edge = torch.zeros((feats.shape[1], 256), dtype=torch.bool,
+                       device=feats.device)
+    for ch in _chunks(feats, cnt, tiles_x, 16):
+        s = torch.cumsum(ch.log_t, dim=-1)
+        n = torch.cumsum(ch.ok.to(torch.float32), dim=-1)
+        _, e = torch.frexp(s)
+        ulp = torch.ldexp(torch.ones_like(s), e - 24)      # ulp of |S_j|
+        band = 2.0 * n * ulp + 2.0 * ulp
+        edge[ch.t0:ch.t1] = (ch.ok & ((s - cut).abs() <= band)).any(-1)
+    return edge
+
+
 def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
-                           n_aux):
+                           n_aux, edge_aware: bool = False):
     """The training shape's kernels (C=8) on one cloud's tile features:
     the forward, the backward twice (bitwise equal) and the scatter-add of
-    its dfeats, each against its plain version."""
+    its dfeats, each against its plain version. ``edge_aware`` (a trained
+    cloud) holds the forward to ``ATOL`` at every pixel off the
+    transmittance cut (``transmittance_edge``), requires at most
+    ``EDGE_MAX_SHARE`` of the pixels on it, and requires every pixel whose
+    two walks took different splats (T_final apart by ``FLIP_RTOL``) to
+    lie on it."""
     from instag_torch.ops.composite import (composite_bwd,
                                             composite_bwd_plain,
                                             composite_fwd,
@@ -482,6 +548,25 @@ def training_kernel_checks(label, feats, cnt, g, ids, n_splats, tiles_x,
     d_p = composite_bwd_plain(feats, cnt, g, tiles_x, 8, n_aux)
     torch.cuda.synchronize()
     fwd_err = float((out - ref).abs().max())
+    if edge_aware:
+        edge = transmittance_edge(feats, cnt, tiles_x)
+        n_edge, most = int(edge.sum()), int(EDGE_MAX_SHARE * edge.numel())
+        pix_err = (out - ref).abs().amax(1)                  # [T, P]
+        edge_err = float(pix_err[edge].max()) if n_edge else 0.0
+        fwd_err = float(pix_err[~edge].max())
+        t_k, t_p = out[:, 9], ref[:, 9]                      # T_final
+        flips = (t_k - t_p).abs() > FLIP_RTOL * t_p
+        log(f"{label} forward: {n_edge} of {edge.numel()} pixels on the "
+            f"1e-4 transmittance cut (at most {most}), max |kernel - "
+            f"plain| there {edge_err:.2e}; elsewhere {fwd_err:.2e} (ATOL "
+            f"{ATOL}); {int(flips.sum())} pixels took a splat more or "
+            f"fewer, {int((flips & ~edge).sum())} of them off the cut")
+        if n_edge > most:
+            raise AssertionError(f"{label}: {n_edge} pixels at the "
+                                 f"transmittance cut > {most}")
+        if bool((flips & ~edge).any()):
+            raise AssertionError(f"{label}: a pixel off the transmittance "
+                                 "cut took other splats than the plain walk")
     if not fwd_err <= ATOL:
         raise AssertionError(f"{label}: composite_fwd off by {fwd_err}")
     if not torch.equal(d_k, d_again):
@@ -1328,11 +1413,10 @@ def clip_synthesis(card: str, dev: torch.device, fuse: dict) -> dict:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [no_cv2, ROOT, os.environ.get("PYTHONPATH", "")]))
     cli_s = {}
-    for label, kw in (("as found", {}), ("OpenCV hidden", {"env": env})):
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=900, **kw)
-        cli_s[label] = time.perf_counter() - t
+    started = {label: _Started(cmd, 900, **kw) for label, kw in (
+        ("as found", {}), ("OpenCV hidden", {"env": env}))}
+    for label, run in started.items():     # both at once
+        proc, cli_s[label] = run.result()
         for line in (proc.stdout + proc.stderr).strip().splitlines()[-4:]:
             log(f"  cli ({label}) | {line}")
         if proc.returncode != 0:
@@ -1451,6 +1535,53 @@ def _key_paths(tree, prefix=""):
     return [prefix]
 
 
+_STARTED = []            # background CLIs, killed if the script ends first
+
+
+@atexit.register
+def _stop_started():
+    for bg in _STARTED:
+        if bg.proc.poll() is None:
+            bg.proc.kill()
+            bg.proc.wait()
+
+
+class _Started:
+    """A CLI run as a user runs it, started now and read later, so that
+    it runs beside the phase's in-process work (the card is 6-25 % busy
+    there; PERF.md section 5): ``result()`` waits for it under its time
+    limit and returns (a ``CompletedProcess`` with its output, wall s from
+    its start). Its output goes to files, not pipes, which a chatty run
+    would fill."""
+
+    def __init__(self, cmd, timeout, **kw):
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.timeout, self.t = timeout, time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.out,
+                                     stderr=self.err, text=True, **kw)
+        _STARTED.append(self)
+
+    def result(self):
+        try:
+            self.proc.wait(max(0.0, self.timeout
+                               - (time.perf_counter() - self.t)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"{self.proc.args[:3]} ran past "
+                                 f"{self.timeout} s")
+        wall = time.perf_counter() - self.t
+        text = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+        return subprocess.CompletedProcess(self.proc.args,
+                                           self.proc.returncode,
+                                           *text), wall
+
+
 def _in_process(main, argv):
     """A CLI's ``main(argv)`` with its output kept: (result, output, wall
     s, each kernel's launches)."""
@@ -1510,31 +1641,32 @@ def adaptation_clis(card: str, dev: torch.device, scene: str,
     cmd = [sys.executable, "-m", "instag_torch.cli.adapt", "-s", scene, "-m",
            run_a, "--iterations", str(ADAPT_ITERS), "--fuse_iterations",
            str(ADAPT_FUSE_ITERS), *device]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=900)
-    adapt_s = time.perf_counter() - t
-    lines = (proc.stdout + proc.stderr).strip().splitlines()
-    for line in (lines[-20:] if proc.returncode else
-                 [x for x in lines if x.startswith("[adapt]")]):
-        log(f"  adapt | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"cli.adapt exited {proc.returncode}")
-    for which in ("face", "mouth", "fuse"):
-        keys_check(run_a, which)
-    with open(os.path.join(run_a, "metrics.json")) as f:
-        scores = json.load(f)
-    if not (np.isfinite(scores["psnr"]) and np.isfinite(scores["lpips"])
-            and isinstance(scores["lpips_real"], bool)):
-        raise AssertionError(f"metrics.json: {scores}")
-    if not any(os.path.exists(os.path.join(run_a, f"out.mp4{x}"))
-               for x in ("", ".frames.npz")):
-        raise AssertionError("cli.adapt wrote no clip")
-    log(f"[{card}] cli.adapt ({ADAPT_ITERS} face, {ADAPT_ITERS} mouth, "
-        f"{ADAPT_FUSE_ITERS} fusion steps, the {CLIP_VAL}-frame val clip "
-        f"with its variants and PLYs, metrics): exit 0 in {adapt_s:.2f} s "
-        f"wall as a process; metrics.json {scores}; bundle keys equal "
-        f"{BUNDLE_KEYS}")
+    adapt_run = _Started(cmd, 900)      # read after the in-process runs
+
+    def adapt_checks():
+        proc, adapt_s = adapt_run.result()
+        lines = (proc.stdout + proc.stderr).strip().splitlines()
+        for line in (lines[-20:] if proc.returncode else
+                     [x for x in lines if x.startswith("[adapt]")]):
+            log(f"  adapt | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.adapt exited {proc.returncode}")
+        for which in ("face", "mouth", "fuse"):
+            keys_check(run_a, which)
+        with open(os.path.join(run_a, "metrics.json")) as f:
+            scores = json.load(f)
+        if not (np.isfinite(scores["psnr"]) and np.isfinite(scores["lpips"])
+                and isinstance(scores["lpips_real"], bool)):
+            raise AssertionError(f"metrics.json: {scores}")
+        if not any(os.path.exists(os.path.join(run_a, f"out.mp4{x}"))
+                   for x in ("", ".frames.npz")):
+            raise AssertionError("cli.adapt wrote no clip")
+        log(f"[{card}] cli.adapt ({ADAPT_ITERS} face, {ADAPT_ITERS} mouth, "
+            f"{ADAPT_FUSE_ITERS} fusion steps, the {CLIP_VAL}-frame val "
+            f"clip with its variants and PLYs, metrics): exit 0 in "
+            f"{adapt_s:.2f} s wall as a process, beside this phase's "
+            f"in-process runs; metrics.json {scores}; bundle keys equal "
+            f"{BUNDLE_KEYS}")
 
     # train_face, then resumed from its bundle in another run directory
     base = ["-s", scene, *device]
@@ -1676,6 +1808,7 @@ def adaptation_clis(card: str, dev: torch.device, scene: str,
         f"streamed from pinned host memory {runs[True][1]:.2f} s, on the "
         f"card {runs[False][1]:.2f} s; losses within rel {rel:.2e} "
         f"(rtol {STREAM_RTOL}); launches {runs[True][2]}")
+    adapt_checks()
     return total
 
 
@@ -1725,7 +1858,8 @@ def _loop_checks(tag, res, steps, launches):
                              f"per step: {launches}")
 
 
-def pretraining(card: str, dev: torch.device) -> dict:
+def pretraining(card: str, dev: torch.device, keep: list,
+                beside=None) -> tuple:
     """Phase 14: multi-identity pre-training at full width, its checks and
     its times. Returns each kernel's launches on the pre-training loops
     and on the in-process ``cli.train_face`` run from their EMA bundle."""
@@ -1915,10 +2049,9 @@ def pretraining(card: str, dev: torch.device) -> dict:
            "-m", run, "--iterations", str(PRE_CLI_ITERS), "--init_num",
            str(PRE_FACE_INIT), "--mouth_init_num", str(PRE_MOUTH_INIT),
            "--device", dev.type]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t
+    cli = _Started(cmd, 600)
+    beside = beside() if beside else None     # runs while the CLI does
+    proc, cli_s = cli.result()
     lines = (proc.stdout + proc.stderr).strip().splitlines()
     for line in (lines[-20:] if proc.returncode else
                  [x for x in lines if x.startswith("[pretrain]")]):
@@ -1932,7 +2065,8 @@ def pretraining(card: str, dev: torch.device) -> dict:
                                  f"{BUNDLE_KEYS}")
     log(f"[{card}] cli.pretrain ({PRE_CLI_ITERS} face and "
         f"{PRE_CLI_ITERS} mouth steps an identity): exit 0 in {cli_s:.2f} s "
-        f"wall as a process; bundle keys equal {BUNDLE_KEYS}")
+        f"wall as a process (beside phase 15's scene and CLI); bundle keys "
+        f"equal {BUNDLE_KEYS}")
 
     ema_path = os.path.join(run, "chkpnt_ema_face_latest.pkl")
     started = {}
@@ -1962,8 +2096,8 @@ def pretraining(card: str, dev: torch.device) -> dict:
     log(f"[{card}] cli.train_face --pretrain_path <EMA bundle>, "
         f"{PRE_ADAPT_STEPS} steps in process: {tf_s:.2f} s wall, its UMF "
         f"bit-equal to the EMA at the start, kernel launches {tf_n}")
-    tmp.cleanup()
-    return {"pretraining": loops, "pretraining_train_face": tf_n}
+    keep.append((tmp, root))       # phase 18 trains on these identities
+    return {"pretraining": loops, "pretraining_train_face": tf_n}, beside
 
 
 def _speech_wav(path: str, seconds: float = 2.0, sr: int = 16000) -> None:
@@ -2006,36 +2140,15 @@ def _oracle_scene(dev: torch.device):
              for a in arrays], float(np.tan(0.35)))
 
 
-def static_training(card: str, dev: torch.device) -> dict:
-    """Phase 15: a hard synthetic identity written and read on the card,
-    ``python -m instag_torch.train.static`` on it at full width, the
-    kernels against plain on its final cloud, the brute-force oracle and
-    ``cov3d_precomp``, a reference checkpoint imported, and the AVE
-    encoder. Returns each kernel's launches on the phase's main path (the
-    CLI as a process and in process)."""
-    import ast
+def static_scene(card: str, dev: torch.device) -> dict:
+    """Phase 15's start: the hard synthetic identity written and read on
+    the card, and ``python -m instag_torch.train.static`` on it started as
+    a user runs it; ``static_training`` reads it. Returns the scene and
+    the started CLI."""
     import tempfile
 
     from instag_torch.config import ModelConfig, OptimizationConfig
     from instag_torch.data import synthetic_hard
-    from instag_torch.data.audio import AudioWindows, load_wav
-    from instag_torch.data.dataset import (load_frames, random_init_points,
-                                           scene_extent)
-    from instag_torch.io.checkpoints import (gopt_from_dict,
-                                             load_gaussian_ply,
-                                             state_from_dict)
-    from instag_torch.io.reference_convert import convert_capture
-    from instag_torch.models import gaussians as G
-    from instag_torch.models.nets import AudioEncoder
-    from instag_torch.ops.rasterize import (RasterizeConfig, prepare,
-                                            rasterize, sh_colors,
-                                            tile_features)
-    from instag_torch.ops.reference_splat import splat_reference
-    from instag_torch.render import _masked_features, render
-    from instag_torch.train import static as S
-    from instag_torch.train.common import (build_frame_batch,
-                                           gaussian_backward, rgb_loss)
-    from instag_torch.utils.general import quat_to_rotmat, safe_normalize
 
     mc, oc = ModelConfig(), OptimizationConfig(iterations=STATIC_ITERS)
     capacity = mc.resolve_capacity()
@@ -2080,6 +2193,46 @@ def static_training(card: str, dev: torch.device) -> dict:
     if write_s > SCENE_WRITE_MAX_S:
         log(f"  the hard scene took over {SCENE_WRITE_MAX_S} s to write")
 
+    # the CLI as a user runs it, read by static_training
+    run = os.path.join(tmp.name, "static")
+    cmd = [sys.executable, "-m", "instag_torch.train.static",
+           "--source_path", scene, "--model_path", run, "--iterations",
+           str(STATIC_ITERS), "--device", dev.type]
+    return dict(mc=mc, oc=oc, capacity=capacity, tmp=tmp, scene=scene,
+                run=run, cli=_Started(cmd, 600))
+
+
+def static_training(card: str, dev: torch.device, hard: dict) -> dict:
+    """Phase 15: on ``static_scene``'s hard synthetic identity,
+    ``python -m instag_torch.train.static`` at full width, the
+    kernels against plain on its final cloud, the brute-force oracle and
+    ``cov3d_precomp``, a reference checkpoint imported, and the AVE
+    encoder. Returns each kernel's launches on the phase's main path (the
+    CLI as a process and in process)."""
+    import ast
+
+    from instag_torch.data.audio import AudioWindows, load_wav
+    from instag_torch.data.dataset import (load_frames, random_init_points,
+                                           scene_extent)
+    from instag_torch.io.checkpoints import (gopt_from_dict,
+                                             load_gaussian_ply,
+                                             state_from_dict)
+    from instag_torch.io.reference_convert import convert_capture
+    from instag_torch.models import gaussians as G
+    from instag_torch.models.nets import AudioEncoder
+    from instag_torch.ops.rasterize import (RasterizeConfig, prepare,
+                                            rasterize, sh_colors,
+                                            tile_features)
+    from instag_torch.ops.reference_splat import splat_reference
+    from instag_torch.render import _masked_features, render
+    from instag_torch.train import static as S
+    from instag_torch.train.common import (build_frame_batch,
+                                           gaussian_backward, rgb_loss)
+    from instag_torch.utils.general import quat_to_rotmat, safe_normalize
+
+    mc, oc, capacity, tmp, scene, run = (hard[k] for k in (
+        "mc", "oc", "capacity", "tmp", "scene", "run"))
+
     # the initial cloud's train-view PSNR, as the trainer starts it
     records = load_frames(scene, "train", device=dev)
     batch = build_frame_batch(records, device=dev)
@@ -2091,15 +2244,8 @@ def static_training(card: str, dev: torch.device) -> dict:
                                   mc.sh_degree, extent)
     psnr0 = S.train_view_psnr(cfg, state0, batch)
 
-    # the CLI as a user runs it
-    run = os.path.join(tmp.name, "static")
-    cmd = [sys.executable, "-m", "instag_torch.train.static",
-           "--source_path", scene, "--model_path", run, "--iterations",
-           str(STATIC_ITERS), "--device", dev.type]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t
+    # the CLI as a user runs it, started by static_scene
+    proc, cli_s = hard["cli"].result()
     lines = (proc.stdout + proc.stderr).strip().splitlines()
     for line in (lines[-20:] if proc.returncode else lines):
         log(f"  static | {line}")
@@ -2110,7 +2256,8 @@ def static_training(card: str, dev: torch.device) -> dict:
               if x.startswith("[") and "points=" in x]
     log(f"[{card}] train.static {STATIC_ITERS} steps at {SIZE}x{SIZE}, "
         f"capacity {capacity}, K={mc.max_per_tile}: exit 0 in {cli_s:.2f} s "
-        f"wall as a process; its loop {res['train_time_s']:.2f} s, "
+        f"wall as a process (beside cli.pretrain); its loop "
+        f"{res['train_time_s']:.2f} s, "
         f"{res['train_time_s'] * 1e3 / STATIC_ITERS:.2f} ms per step "
         f"(densifications included, host clock, read at the end); loss "
         f"{res['initial_loss']:.5f} (first 50) -> {res['final_loss']:.5f} "
@@ -2311,7 +2458,8 @@ def static_training(card: str, dev: torch.device) -> dict:
                         generator=torch.Generator(dev).manual_seed(13))
         ids = prep.ids.contiguous()
         case = training_kernel_checks("static cloud", feats, cnt, g, ids,
-                                      capacity, cfg.tiles_x, 0)
+                                      capacity, cfg.tiles_x, 0,
+                                      edge_aware=True)
         timed = time_training_kernels("static cloud", card, case, ids,
                                       prep.valid, capacity, cfg.tiles_x,
                                       n_aux=0)
@@ -2389,10 +2537,11 @@ def preprocessing_seam(card: str, dev: torch.device,
                        before_training) -> dict:
     """Phase 16: a raw capture through ``data_utils.process`` on the card
     and into ``cli.train_face``, with its checks and times. Returns each
-    kernel's launches on the training run and its temporary directory.
-    ``before_training(capture)`` runs before the training run, with the
-    capture (its temporary directory, scene directory and video): phase
-    17, then the wait for the splat kernels' build."""
+    kernel's launches on the training run, its temporary directory and
+    the scene directory (``base``). ``before_training(capture)`` runs
+    before the training run, with the capture (its temporary directory,
+    scene directory and video): phase 17, then the wait for the splat
+    kernels' build."""
     import shutil
     import tempfile
 
@@ -2621,7 +2770,7 @@ def preprocessing_seam(card: str, dev: torch.device,
     if not (len(host) == len(records) and equal and grown <= chunk
             and peak <= chunk):
         raise AssertionError("the streamed read kept frames on the card")
-    return dict(launches=launches, tmp=tmp)
+    return dict(launches=launches, tmp=tmp, base=base)
 
 
 def _fit_sequence(model, n: int, seed: int = 0) -> dict:
@@ -2824,27 +2973,30 @@ def photometric_and_extractors(card: str, dev: torch.device, seam: dict):
     save_model(os.path.join(base, "3DMM", "3dmm_model.npz"), model)
     cmd = [sys.executable, "-m", "instag_torch.data_utils.process", video,
            "--task", "8", "--device", dev.type]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
-    task8_s = time.perf_counter() - t
-    lines = (proc.stdout + proc.stderr).strip().splitlines()
-    for line in (lines[-30:] if proc.returncode else lines):
-        log(f"  process | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"process --task 8 exited {proc.returncode}")
-    tp = dict(np.load(os.path.join(base, "track_params.npz")))
+    task8 = _Started(cmd, 300)      # read after (d), which works on copies
     total = SEAM_FRAMES + SEAM_VAL
-    log(f"[{card}] process --task 8 with 3DMM/3dmm_model.npz on phase 16's "
-        f"capture: exit 0 in {task8_s:.2f} s as a process; exp "
-        f"{tp['exp'].shape}, max |id| {np.abs(tp['id']).max():.4f}, |exp| "
-        f"{np.abs(tp['exp']).max():.4f}, |light| "
-        f"{np.abs(tp['light']).max():.4f}")
-    if not (tp["euler"].shape == (total, 3) and tp["exp"].shape == (total, 79)
-            and tp["light"].shape == (total, 27)
-            and all(np.abs(tp[k]).max() > 0 for k in ("id", "exp", "light"))
-            and all(np.isfinite(v).all() for v in tp.values())):
-        raise AssertionError("task 8 wrote no fit")
+
+    def task8_checks():
+        proc, task8_s = task8.result()
+        lines = (proc.stdout + proc.stderr).strip().splitlines()
+        for line in (lines[-30:] if proc.returncode else lines):
+            log(f"  process | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"process --task 8 exited {proc.returncode}")
+        tp = dict(np.load(os.path.join(base, "track_params.npz")))
+        log(f"[{card}] process --task 8 with 3DMM/3dmm_model.npz on phase "
+            f"16's capture: exit 0 in {task8_s:.2f} s as a process, beside "
+            f"(d); exp {tp['exp'].shape}, max |id| "
+            f"{np.abs(tp['id']).max():.4f}, |exp| "
+            f"{np.abs(tp['exp']).max():.4f}, |light| "
+            f"{np.abs(tp['light']).max():.4f}")
+        if not (tp["euler"].shape == (total, 3)
+                and tp["exp"].shape == (total, 79)
+                and tp["light"].shape == (total, 27)
+                and all(np.abs(tp[k]).max() > 0
+                        for k in ("id", "exp", "light"))
+                and all(np.isfinite(v).all() for v in tp.values())):
+            raise AssertionError("task 8 wrote no fit")
 
     # (d) tasks 4, 7 and 11 through the learned extractors, random weights
     # from a seed in the public checkpoints' layouts, on a copy of the
@@ -2961,8 +3113,380 @@ def photometric_and_extractors(card: str, dev: torch.device, seam: dict):
     if max(net_err.values()) > NET_TOL:
         raise AssertionError(f"a network on the card differs from the CPU: "
                              f"{net_err}")
+    task8_checks()
     tmp.cleanup()
     log(f"[{card}] phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 18. the parallel modes (parallel/): --data_parallel on one card and on
+# 2 ranks, identity parallelism, tensor-parallel rendering, NCCL
+# ---------------------------------------------------------------------------
+
+PAR_DP = 4               # frames a data-parallel step
+PAR_TIMED = 4            # dp=4 steps timed
+PAR_CLI_ITERS = 12       # cli.train_face --data_parallel 4 steps
+PAR_TIMEOUT = 240.0      # the 2-rank spawn's own time limit, seconds
+DP_RTOL = 1e-4           # one dp step against another order of the same
+DP_ATOL_FRAC = 1e-5      # fp32 sums (ranks, atomics): per element
+TP_ATOL = {"image": 3e-5, "alpha": 3e-5}   # tests/test_tensor_parallel.py
+TP_GRAD_ATOL = 2e-4      # of each gradient's largest |value|
+
+
+def _dp_case(dev):
+    """Phase 7's step cloud, nets and frames (from seeds), the dp step's
+    flags and a ``step(dp, group)`` factory."""
+    from instag_torch.bench_utils import (synthetic_frame_batch,
+                                          synthetic_motion_params,
+                                          synthetic_state)
+    from instag_torch.config import OptimizationConfig
+    from instag_torch.ops.rasterize import RasterizeConfig
+    from instag_torch.train.face import Flags, make_face_step
+
+    nets = synthetic_motion_params(seed=1, device=dev)
+    state = synthetic_state(30000, 32768, seed=0, scale=0.004, device=dev)
+    batch = synthetic_frame_batch(SIZE, n_frames=PAR_DP, device=dev)
+    flags = Flags(align=1.0, use_regs=1.0, use_sapiens=0.0, use_depth=1.0,
+                  hair_paint=0.0, use_lpips=0.0)
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
+
+    def step(dp, group=None):
+        return make_face_step(cfg, OptimizationConfig(), nets["face_umf"],
+                              nets["face_pmf"], 1.0, False, device=dev,
+                              dp=dp, group=group)
+    return dict(nets=(nets["face_umf"], nets["face_pmf"]), state=state,
+                batch=batch, flags=flags, step=step, cfg=cfg)
+
+
+def _dp_grads(case, rows, group=None):
+    """The dp=4 step's mean loss and gradients over this rank's ``rows``
+    (no update): {name: tensor}, with the statistics' increments."""
+    from instag_torch.models import gaussians as G
+    from instag_torch.train.common import adaptation_grads
+    step = case["step"](PAR_DP, group)
+    loss, grads, stats = adaptation_grads(
+        step, case["state"], rows, lambda st, off, i: step.loss(
+            st, off, case["batch"], i, case["flags"]))
+    st = G.add_frame_stats(case["state"], *stats)
+    out = {f: getattr(grads, f) for f in G.PARAM_FIELDS}
+    for net in case["nets"]:
+        for n, p in net.named_parameters():
+            out[f"{type(net).__name__}.{n}"] = p.grad.clone()
+    out.update(xyz_grad_accum=st.xyz_grad_accum, denom=st.denom,
+               max_radii2d=st.max_radii2d)
+    return float(loss), out
+
+
+def _close_all(label, ours, ref):
+    """check_close over every tensor of two gradient dicts."""
+    return max(check_close(f"{label} {k}", ours[k].to(ref[k].device),
+                           ref[k], DP_RTOL, DP_ATOL_FRAC) for k in ref)
+
+
+def _parallel_rank(rank, group, dev, ids_root):
+    """One of phase 18's 2 ranks on the shared card (gloo): the dp=4 step
+    at W = 2, one identity-parallel face motion step with the multi-process
+    bundle, and a tensor-parallel frame. Returns numbers and launches."""
+    import copy
+
+    from instag_torch.bench_utils import synthetic_camera, synthetic_state
+    from instag_torch.config import ModelConfig, OptimizationConfig
+    from instag_torch.io.checkpoints import (bundle_list, flax_params,
+                                             load_bundle)
+    from instag_torch.io.from_jax import load_motion_net
+    from instag_torch.models import gaussians as G
+    from instag_torch.models.motion import (MotionNetwork,
+                                            PersonalizedMotionNetwork,
+                                            init_motion_params)
+    from instag_torch.ops.rasterize import RasterizeConfig, rasterize
+    from instag_torch.parallel.comm import check_replicas
+    from instag_torch.parallel.identity_parallel import \
+        make_idp_pretrain_step
+    from instag_torch.parallel.mesh import shard_rows
+    from instag_torch.parallel.multihost import Shard, save_bundle_multihost
+    from instag_torch.parallel.tensor_parallel import \
+        rasterize_tensor_parallel
+    from instag_torch.train import pretrain as TP
+    from instag_torch.train.common import replica_tensors
+
+    fns = kernel_fns()
+    launches = {fn.__name__: 0 for fn in fns}
+
+    def count(run):
+        """``run()``, its kernel launches added to this rank's count (the
+        references computed beside it are not counted)."""
+        for fn in fns:
+            fn.launches = 0
+        res = run()
+        torch.cuda.synchronize()
+        for fn in fns:
+            launches[fn.__name__] += fn.launches
+        return res
+
+    out = {}
+    # the dp=4 step at W = 2: this rank's 2 frames
+    case = _dp_case(dev)
+    loss, grads = count(lambda: _dp_grads(case, list(range(PAR_DP))[
+        shard_rows(PAR_DP, group)], group))
+    check_replicas(replica_tensors(case["state"].replace(
+        params=G.GaussianParams(**{f: grads[f] for f in G.PARAM_FIELDS})),
+        umf=case["nets"][0], pmf=case["nets"][1]), group)
+    out["dp"] = (loss, {k: v.cpu() for k, v in grads.items()})
+    del case, grads
+
+    # one identity-parallel face motion step: this rank's identity
+    run = TP._start(ModelConfig(source_path=ids_root, init_num=2000),
+                    OptimizationConfig(), PRE_IDS, False, 0, False, 1000,
+                    dev, "phase 18", only=rank)
+    state, gopt = run["states"][rank], run["gopts"][rank]
+    batch = run["batches"][rank]
+    umf = init_motion_params(MotionNetwork(),
+                             torch.Generator().manual_seed(0)).to(dev)
+    pmfs = [init_motion_params(PersonalizedMotionNetwork("face"),
+                               torch.Generator().manual_seed(1 + k)).to(dev)
+            for k in range(len(PRE_IDS))]
+    flags = TP.PretrainFlags(use_regs=1.0, hair_paint=0.0)
+    base = copy.deepcopy((umf, pmfs))
+
+    def motion(nets):
+        u, ps = copy.deepcopy(nets)
+        return TP.make_pretrain_face_step(
+            run["cfg"], OptimizationConfig(), u, ps,
+            copy.deepcopy(u).requires_grad_(False), run["extents"][0],
+            run["select_iter"], run["iterations"], device=dev)
+    serial = motion(base)(state, gopt, rank, batch, 0, 1, flags)[2]
+    idp_motion = motion(base)
+    idp = make_idp_pretrain_step(idp_motion, group)
+    _, _, idp_loss = count(lambda: idp(state, gopt, batch, 0, 1, flags))
+    check_replicas(TP.replica_tensors_of(idp_motion), group)
+    path = os.path.join(ids_root, "phase18_idp.pkl")
+    save_bundle_multihost(path, {
+        "umf_params": flax_params(idp_motion.umf_net),
+        "xyz": Shard(state.params.xyz[None].cpu()),
+        "data_list": PRE_IDS}, group)
+    if rank == 0:
+        b = load_bundle(path)
+        net = load_motion_net(MotionNetwork(), b["umf_params"], dev)
+        same = all(torch.equal(a, c) for a, c in zip(
+            net.state_dict().values(),
+            idp_motion.umf_net.state_dict().values()))
+        out["bundle"] = (tuple(b["xyz"].shape), same,
+                         bundle_list(b["data_list"]))
+    out["idp"] = (float(serial), float(idp_loss))
+    del run, state, gopt, batch
+
+    # one tensor-parallel frame, forward and backward, at W = 2
+    cloud = synthetic_state(30000, 32768, seed=0, scale=0.004, device=dev)
+    cam = synthetic_camera(SIZE, device=dev)
+    cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def args(rows):
+        xyz = cloud.params.xyz[rows].detach().clone().requires_grad_(True)
+        op = cloud.get_opacity()[rows].detach().clone().requires_grad_(True)
+        return xyz, op, dict(
+            scales=cloud.get_scaling()[rows].detach(),
+            rotations=cloud.get_rotation()[rows].detach(),
+            viewmatrix=cam.view_transform, projmatrix=cam.full_proj_transform,
+            campos=cam.camera_center, tanfovx=cam.tanfovx,
+            tanfovy=cam.tanfovy, bg=bg,
+            shs=cloud.get_features()[rows].detach(), sh_degree=1,
+            active=cloud.alive[rows])
+    rows = shard_rows(cloud.capacity, group)
+    xyz, op, kw = args(rows)
+
+    def tensor_parallel():
+        tp = rasterize_tensor_parallel(cfg, group, xyz, op, **kw)
+        (tp.image.pow(2).sum() + tp.alpha.sum()).backward()
+        return tp
+    tp = count(tensor_parallel)
+    fxyz, fop, fkw = args(slice(None))
+    full = rasterize(cfg, fxyz, fop, **fkw)
+    (full.image.pow(2).sum() + full.alpha.sum()).backward()
+    band = SIZE // 2
+    ys = slice(rank * band, (rank + 1) * band)
+    out["tp"] = dict(
+        image=float((tp.image - full.image[:, ys]).detach().abs().max()),
+        alpha=float((tp.alpha - full.alpha[:, ys]).detach().abs().max()),
+        radii=bool(torch.equal(tp.radii, full.radii[rows])),
+        xyz=float((xyz.grad - fxyz.grad[rows]).abs().max()
+                  / fxyz.grad.abs().max()),
+        opacity=float((op.grad - fop.grad[rows]).abs().max()
+                      / fop.grad.abs().max()))
+    out["launches"] = launches
+    return out
+
+
+def parallel_paths(card: str, dev: torch.device, step_ms: float,
+                   scene: str, ids_root: str) -> dict:
+    """Phase 18: (a) --data_parallel 4 on one card in process, against
+    four single-frame steps; (b) cli.train_face --data_parallel 4 on
+    phase 16's scene; (c) 2 ranks sharing the card over gloo (the dp step
+    at W = 2, an identity-parallel step on phase 14's identities with the
+    multi-process bundle, a tensor-parallel frame); (d) one rank over
+    NCCL. Returns each kernel's launches on these paths."""
+    import tempfile
+
+    from instag_torch.cli import train_face as train_face_cli
+    from instag_torch.io.checkpoints import load_bundle
+    from instag_torch.models import gaussians as G
+    from instag_torch.parallel.launch import start
+    from instag_torch.parallel.mesh import init_distributed, shutdown
+
+    t_phase = time.perf_counter()
+    fns = kernel_fns()
+    launches = {fn.__name__: 0 for fn in fns}
+
+    def count(run):
+        for fn in fns:
+            fn.launches = 0
+        res = run()
+        torch.cuda.synchronize()
+        for fn in fns:
+            launches[fn.__name__] += fn.launches
+        return res, {fn.__name__: fn.launches for fn in fns}
+
+    # (a) one dp=4 step against four single-frame steps
+    case = _dp_case(dev)
+    loss4, g4 = _dp_grads(case, list(range(PAR_DP)))
+    single = case["step"](1)
+    singles, mean = [], {}
+    for i in range(PAR_DP):
+        singles.append(single.loss_and_grads(case["state"], case["batch"], i,
+                                             case["flags"]))
+        grads = {f: getattr(singles[-1][2], f) for f in G.PARAM_FIELDS}
+        for net in case["nets"]:
+            for n, p in net.named_parameters():
+                grads[f"{type(net).__name__}.{n}"] = p.grad
+        for k, v in grads.items():
+            mean[k] = mean.get(k, 0) + v / PAR_DP
+    worst = max(check_close(f"dp=4 gradient {k}", g4[k], v, GRAD_RTOL,
+                            GRAD_ATOL_FRAC) for k, v in mean.items())
+    loss1 = [float(s[0]) for s in singles]
+    stats = G.GaussianState(**{**vars(case["state"])})
+    for s in singles:
+        stats = G.add_densification_stats(stats, s[3], s[1].radii,
+                                          s[1].radii > 0)
+    check_close("dp=4 xyz_grad_accum", g4["xyz_grad_accum"],
+                stats.xyz_grad_accum, 2e-4, 1e-6)
+    if not (torch.equal(g4["denom"], stats.denom)
+            and torch.equal(g4["max_radii2d"], stats.max_radii2d)):
+        raise AssertionError("dp=4 statistics differ from the four steps'")
+    if not abs(loss4 - np.mean(loss1)) <= 1e-5 * abs(np.mean(loss1)):
+        raise AssertionError(f"dp=4 loss {loss4} != mean {np.mean(loss1)}")
+    del singles, stats, mean
+    step = case["step"](PAR_DP)
+    gopt = G.adam_init(case["state"].params)
+    (st, gopt, _), step_launch = count(lambda: step(
+        case["state"], gopt, case["batch"], list(range(PAR_DP)), 1,
+        case["flags"]))
+    if any(v != PAR_DP for v in step_launch.values()):
+        raise AssertionError(f"a dp=4 step launched {step_launch}, "
+                             f"expected {PAR_DP} of each kernel")
+    times = []
+    for it in range(2, PAR_TIMED + 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, gopt, _ = step(st, gopt, case["batch"], list(range(PAR_DP)), it,
+                           case["flags"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    dp_ms = statistics.median(times)
+    log(f"[{card}] (a) --data_parallel {PAR_DP} on one card, phase 7's "
+        f"cloud: loss {loss4:.6f} vs the mean of {PAR_DP} single-frame "
+        f"steps {np.mean(loss1):.6f}; Gaussian, UMF and PMF gradients "
+        f"within {worst:.3f} of phase 7's tolerance against their mean; "
+        f"statistics equal their sum; launches {step_launch} "
+        f"a step; {dp_ms:.3f} ms a dp={PAR_DP} step (median of {PAR_TIMED}) "
+        f"against {PAR_DP} x phase 8's step = {PAR_DP * step_ms:.3f} ms")
+    ref = (loss4, {k: v.detach().cpu() for k, v in g4.items()})
+    del st, gopt, step, g4
+
+    # (c) start the 2 ranks; their start-up overlaps (d)
+    ranks = start(_parallel_rank, 2, (ids_root,),
+                  device=(f"cuda:{dev.index or 0}" if dev.type == "cuda"
+                          else "cpu"), backend="gloo", timeout=PAR_TIMEOUT)
+
+    # (d) one rank over NCCL: the collectives of the multi-GPU path
+    tmp = tempfile.TemporaryDirectory()
+    group, ndev = init_distributed(dev.type, init_method=(
+        f"file://{os.path.join(tmp.name, 'nccl')}"), rank=0, world_size=1)
+    backend = torch.distributed.get_backend(group)
+    case = _dp_case(dev)                     # (a) stepped its nets
+    (nccl_loss, nccl_g), _ = count(lambda: _dp_grads(
+        case, list(range(PAR_DP)), group))
+    shutdown()
+    if backend != ("nccl" if dev.type == "cuda" else "gloo") \
+            or nccl_loss != loss4:
+        raise AssertionError(f"NCCL rank: backend {backend}, loss "
+                             f"{nccl_loss} != {loss4}")
+    worst_nccl = _close_all("NCCL dp=4", nccl_g, {k: v.to(dev) for k, v in
+                                                  ref[1].items()})
+    log(f"[{card}] (d) one rank over NCCL (file rendezvous, {ndev}): dp="
+        f"{PAR_DP} loss bit-equal to (a)'s; gradients and statistics within "
+        f"{worst_nccl:.3f} of rtol {DP_RTOL}, atol {DP_ATOL_FRAC} of scale "
+        f"(the scatter's atomics add in another order each run)")
+    del case, nccl_g
+
+    # (c) the 2 ranks' results
+    t_join = time.perf_counter()
+    outs = ranks.join()
+    for r, o in enumerate(outs):
+        for k, v in o["launches"].items():
+            launches[k] += v
+        loss, g = o["dp"]
+        if not abs(loss - ref[0]) <= 1e-6 * abs(ref[0]):
+            raise AssertionError(f"rank {r}: dp=4 loss {loss} != {ref[0]}")
+        worst_w2 = _close_all(f"rank {r} dp=4", g, ref[1])
+        serial, idp = o["idp"]
+        if not abs(serial - idp) <= 1e-6 * abs(serial):
+            raise AssertionError(f"rank {r}: identity-parallel loss {idp} "
+                                 f"!= serial {serial}")
+        tp = o["tp"]
+        if not (tp["image"] <= TP_ATOL["image"]
+                and tp["alpha"] <= TP_ATOL["alpha"] and tp["radii"]
+                and max(tp["xyz"], tp["opacity"]) <= TP_GRAD_ATOL):
+            raise AssertionError(f"rank {r}: tensor-parallel frame {tp}")
+    shape, same, names = outs[0]["bundle"]
+    if not (shape[0] == 2 and same and names == PRE_IDS):
+        raise AssertionError(f"the multi-process bundle: {shape}, UMF equal "
+                             f"{same}, {names}")
+    log(f"[{card}] (c) 2 ranks sharing the card over gloo (joined "
+        f"{time.perf_counter() - t_join:.1f} s after (d)): dp={PAR_DP} at "
+        f"W=2 within {worst_w2:.3f} of (a)'s tolerance, replicas "
+        f"bit-identical; identity-parallel face step losses "
+        f"{[round(o['idp'][1], 6) for o in outs]} equal the serial steps', "
+        f"UMF bit-identical, rank 0's bundle read back (xyz {shape}); "
+        f"tensor-parallel 512x512 frame: bands within "
+        f"{max(o['tp']['image'] for o in outs):.2e} (image), radii equal, "
+        f"gradients within "
+        f"{max(max(o['tp']['xyz'], o['tp']['opacity']) for o in outs):.2e} "
+        f"of scale; launches {[o['launches'] for o in outs]}")
+
+    # (b) cli.train_face --data_parallel 4 on phase 16's scene
+    run_dir = os.path.join(tmp.name, "run")
+    argv = ["-s", scene, "-m", run_dir, "--iterations", str(PAR_CLI_ITERS),
+            "--data_parallel", str(PAR_DP), "--device", dev.type]
+    (res, _, cli_s, cli_launch) = _in_process(train_face_cli.main, argv)
+    for k, v in cli_launch.items():
+        launches[k] += v
+    with open(os.path.join(ROOT, BUNDLE_KEYS)) as f:
+        want = json.load(f)["face"]
+    bundle = load_bundle(os.path.join(run_dir, "chkpnt_face_latest.pkl"))
+    losses = np.array(res["losses"])
+    if not (len(losses) == PAR_CLI_ITERS and np.isfinite(losses).all()
+            and _key_paths(bundle) == want):
+        raise AssertionError("cli.train_face --data_parallel: losses or "
+                             "bundle malformed")
+    log(f"[{card}] (b) cli.train_face --data_parallel {PAR_DP} on phase "
+        f"16's scene: {PAR_CLI_ITERS} steps in {cli_s:.2f} s through main "
+        f"(scene read and val report included), "
+        f"{cli_s * 1e3 / PAR_CLI_ITERS:.1f} ms a step; bundle keys as "
+        f"the manifest's; launches {cli_launch}")
+    tmp.cleanup()
+    log(f"[{card}] phase 18: {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2989,6 +3513,11 @@ def main() -> int:
     from instag_torch.synthesize import (SynthesisModel, make_synthesis_fn,
                                          synthesize_frame)
 
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        log(f"[t={time.perf_counter() - t_start:.1f} s] phase {phase}")
+
     # ---- 1. device ------------------------------------------------------
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -3009,6 +3538,7 @@ def main() -> int:
     compiling = concurrent.futures.ThreadPoolExecutor(1).submit(
         lambda: (kernels.build(SOURCES), time.perf_counter() - t0))
 
+    mark(16)
     # ---- 16. the preprocessing chain, and before its training run (which
     # needs the kernels) 17. the photometric fit and the learned extractors
     def before_training(capture):
@@ -3023,7 +3553,6 @@ def main() -> int:
                     if "registers" in line or "spill" in line:
                         log(f"  ptxas {src}:", line.strip())
     seam = preprocessing_seam(card, dev, before_training)
-    seam["tmp"].cleanup()
 
     # ---- model at full width ------------------------------------------------
     cfg = RasterizeConfig(SIZE, SIZE, max_per_tile=256)
@@ -3039,6 +3568,7 @@ def main() -> int:
     auds = torch.from_numpy(np.random.default_rng(3).normal(
         size=(FRAMES, 8, 29, 16)).astype(np.float32)).to(dev)
 
+    mark(3)
     # ---- 3. kernel against its plain version on a real projection -----------
     with torch.no_grad():
         prep = prepare(cfg, face.params.xyz, face.get_scaling(),
@@ -3107,6 +3637,7 @@ def main() -> int:
         pairs, worst = fwd_check("wide cloud", feats, cnt, cfg.tiles_x, 8, 0)
         cases["wide", 8, 0] = (feats, cnt, pairs, worst)
 
+    mark(4)
     # ---- 4. the serving path at full width ----------------------------------
     synth = make_synthesis_fn(cfg, personalized=True, device=dev)
     composite_fwd.launches = 0
@@ -3140,6 +3671,7 @@ def main() -> int:
         raise AssertionError(f"frame disagrees with the plain composite: "
                              f"{frame_err}")
 
+    mark(5)
     # ---- 5. times --------------------------------------------------------------
     times = []
     for i in range(FRAMES * 4):
@@ -3175,6 +3707,7 @@ def main() -> int:
     k34 = cuda_ms(lambda: composite_fwd(f34, c34, cfg.tiles_x, 3, 4))
     log(f"[{card}] composite_fwd C=3 A=4: kernel {k34:.4f} ms")
 
+    mark(6)
     # ---- 6. where a frame's time goes ---------------------------------------
     prof = profile_runs(lambda: synth(model, cam, auds[1], exp, torso))
     log(f"[{card}] profiled frame: {prof['wall_ms']:.3f} ms wall under the "
@@ -3186,6 +3719,7 @@ def main() -> int:
     for op, count, ms in prof["host"]:
         log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
 
+    mark(7)
     # ---- 7. the face adaptation step at full width --------------------------
     tr_nets = synthetic_motion_params(seed=1, device=dev)
     tr_state = synthetic_state(30000, 32768, seed=0, scale=0.004, device=dev)
@@ -3247,6 +3781,7 @@ def main() -> int:
             and float(tr_state.xyz_grad_accum.sum()) > 0):
         raise AssertionError("densification statistics did not accumulate")
 
+    mark(8)
     # ---- 8. training times --------------------------------------------------
     step_times = []
     for it in range(STEPS + 1, STEPS + 11):
@@ -3287,35 +3822,54 @@ def main() -> int:
     for op, count, ms in prof["host"]:
         log(f"  host   {ms:8.3f} ms {count:6.0f}x  {op}")
 
+    mark(9)
     # ---- 9. the adaptation loop at full width -----------------------------
     loop_launches, face_res, loop_batch, loop_meta, loop_nets = \
         adaptation_loop(card, dev, SIZE)
 
+    mark(10)
     # ---- 10. the mouth loop at full width ----------------------------------
     mouth_launches, mouth_res = mouth_loop(card, dev, face_res, loop_batch,
                                            loop_meta, loop_nets)
 
+    mark(11)
     # ---- 11. the fusion loop at full width ---------------------------------
     lpips_face_step(card, dev)
     fuse_launches, fuse_res = fuse_loop(card, dev, face_res, mouth_res,
                                         loop_batch)
     later = {"mouth_loop": mouth_launches, "fuse_loop": fuse_launches}
 
+    mark(12)
     # ---- 12. clip synthesis through the CLI --------------------------------
     clip = clip_synthesis(card, dev, fuse_res)
 
+    mark(13)
     # ---- 13. the adaptation CLIs --------------------------------------------
     clis = adaptation_clis(card, dev, clip["scene"], clip["tmp"].name)
     clip["tmp"].cleanup()
     later["adaptation_clis"] = clis["all"]
 
+    mark(14)
     # ---- 14. multi-identity pre-training ------------------------------------
-    later.update(pretraining(card, dev))
+    kept = []
+    # phase 15's scene and CLI start beside phase 14's CLI process
+    pre, hard = pretraining(card, dev, kept,
+                            beside=lambda: static_scene(card, dev))
+    later.update(pre)
 
+    mark(15)
     # ---- 15. static training and reference import ---------------------------
-    static = static_training(card, dev)
+    static = static_training(card, dev, hard)
     later["static_training"] = static["launches"]
     static_t = static["timed"]
+
+    mark(18)
+    # ---- 18. the parallel modes -------------------------------------------
+    later["parallel"] = parallel_paths(card, dev, step_ms, seam["base"],
+                                       kept[0][1])
+    seam["tmp"].cleanup()
+    kept[0][0].cleanup()
+    mark("end")
 
     later["preprocessing_seam"] = seam["launches"]
 

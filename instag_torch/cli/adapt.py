@@ -8,7 +8,12 @@ passing in memory. It writes what the per-stage CLIs write, and
     python -m instag_torch.cli.adapt -s data/<id> -m output/<id> \
         [--pretrain_path output/pretrain] [--long] [--iterations 10000] \
         [--fuse_iterations 2000] [--mouth_init_num 5000] [--dilate] \
-        [--fast] [--skip_synthesis] [--no_lpips] [--device cuda]
+        [--fast] [--skip_synthesis] [--no_lpips] [--data_parallel B] \
+        [--device cuda]
+
+``--data_parallel`` and ``torchrun`` as in ``cli.train_face``: the three
+training stages run on every rank, and rank 0 alone writes the bundles
+and runs the synthesis and the metrics.
 
 The JAX CLI also compiles the mouth, fusion and synthesis programs in a
 background thread while the face trains (``_warm_stage_compiles``,
@@ -29,13 +34,13 @@ import torch
 
 from ..config import make_parser, parse_all, save_cfg
 from ..data.dataset import load_frames
-from ..device import resolve_device
 from ..io.checkpoints import (fuse_bundle, save_bundle, save_gaussian_ply,
                               train_bundle)
 from ..io.from_jax import load_motion_net
 from ..metrics import (evaluate_frames, lmd_from_landmarks,
                        load_gt_landmarks, track_video_landmarks)
 from ..models.motion import MotionNetwork, MouthMotionNetwork
+from ..parallel.mesh import shutdown
 from ..synthesize import SynthesisModel, synthesize
 from ..train.common import (FrameBatch, FrameMeta, build_frame_batch,
                             frame_source, load_training_frames,
@@ -43,7 +48,7 @@ from ..train.common import (FrameBatch, FrameMeta, build_frame_batch,
 from ..train.face import train_face
 from ..train.fuse import train_fuse
 from ..train.mouth import train_mouth
-from .train_face import add_port_args, check_data_parallel, load_pretrain
+from .train_face import add_port_args, load_pretrain, start_data_parallel
 
 
 def main(argv=None) -> dict:
@@ -63,12 +68,13 @@ def main(argv=None) -> dict:
                         help="drop the perceptual-loss phases")
     add_port_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
-    check_data_parallel(args.data_parallel)
-    dev = resolve_device(args.device)
+    group, dev, rank0 = start_data_parallel(args)
+    dp = dict(data_parallel=args.data_parallel, group=group)
     t0 = time.time()
 
     def stage(name):
-        print(f"[adapt] {name} (t={time.time() - t0:.0f}s)", flush=True)
+        if rank0:
+            print(f"[adapt] {name} (t={time.time() - t0:.0f}s)", flush=True)
 
     def pretrained(which, net):
         p = os.path.join(args.pretrain_path, f"chkpnt_ema_{which}_latest.pkl")
@@ -86,14 +92,15 @@ def main(argv=None) -> dict:
     face = train_face(mc, oc, batch, meta,
                       umf_net=pretrained("face", MotionNetwork),
                       long=args.long, seed=args.seed,
-                      lpips_enabled=not args.no_lpips, device=dev)
-    save_cfg(mc.model_path, mc)
-    save_bundle(os.path.join(mc.model_path, "chkpnt_face_latest.pkl"),
-                train_bundle(face, oc.iterations,
-                             max_sh_degree=face["max_sh_degree"]))
-    save_gaussian_ply(os.path.join(
-        mc.model_path, "point_cloud", f"iteration_{oc.iterations}_face",
-        "point_cloud.ply"), face["state"])
+                      lpips_enabled=not args.no_lpips, device=dev, **dp)
+    if rank0:
+        save_cfg(mc.model_path, mc)
+        save_bundle(os.path.join(mc.model_path, "chkpnt_face_latest.pkl"),
+                    train_bundle(face, oc.iterations,
+                                 max_sh_degree=face["max_sh_degree"]))
+        save_gaussian_ply(os.path.join(
+            mc.model_path, "point_cloud", f"iteration_{oc.iterations}_face",
+            "point_cloud.ply"), face["state"])
 
     stage("train_mouth")
     mcm = dataclasses.replace(mc, type="mouth")
@@ -101,9 +108,10 @@ def main(argv=None) -> dict:
         mcm = dataclasses.replace(mcm, init_num=args.mouth_init_num)
     mouth = train_mouth(mcm, oc, batch, meta, face,
                         umf_net=pretrained("mouth", MouthMotionNetwork),
-                        long=args.long, seed=args.seed, device=dev)
-    save_bundle(os.path.join(mc.model_path, "chkpnt_mouth_latest.pkl"),
-                train_bundle(mouth, oc.iterations))
+                        long=args.long, seed=args.seed, device=dev, **dp)
+    if rank0:
+        save_bundle(os.path.join(mc.model_path, "chkpnt_mouth_latest.pkl"),
+                    train_bundle(mouth, oc.iterations))
 
     stage("train_fuse")
     # fusion opacity lr 1e-3, as the reference pipeline passes it
@@ -112,11 +120,13 @@ def main(argv=None) -> dict:
     fuse_batch = (batch if isinstance(batch, FrameBatch)
                   else build_frame_batch(records, device=dev))
     fuse = train_fuse(mc, ocf, fuse_batch, face, mouth, seed=args.seed,
-                      lpips_enabled=not args.no_lpips, device=dev)
+                      lpips_enabled=not args.no_lpips, device=dev, **dp)
+    result = dict(face=face, mouth=mouth, fuse=fuse)
+    if not rank0:
+        return result
     save_bundle(os.path.join(mc.model_path, "chkpnt_fuse_latest.pkl"),
                 fuse_bundle(fuse, args.fuse_iterations))
 
-    result = dict(face=face, mouth=mouth, fuse=fuse)
     if not args.skip_synthesis:
         stage("synthesize")
         model = SynthesisModel(**{k: fuse[k] for k in (
@@ -159,3 +169,4 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    shutdown()

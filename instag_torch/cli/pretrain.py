@@ -5,7 +5,8 @@ scripts/pretrain_con.sh runs two processes).
     python -m instag_torch.cli.pretrain -s data/pretrain -m output/pretrain \
         [--init_num 2000] [--mouth_init_num 5000] [--iterations 30000] \
         [--densify_grad_threshold 5e-4] [--share_audio_net] [--skip_mouth] \
-        [--data_list id_a,id_b] [--seed 0] [--device cuda]
+        [--data_list id_a,id_b] [--seed 0] [--identity_parallel] \
+        [--device cuda]
 
 It writes what ``pretrain_face`` and ``pretrain_mouth`` write; the face
 result passes to the mouth stage in memory. ``--init_num`` and
@@ -13,6 +14,8 @@ result passes to the mouth stage in memory. ``--init_num`` and
 from ``--mouth_init_num`` splats and densifies at the default threshold,
 as the reference script runs it. Then ``cli.adapt --pretrain_path
 <model_path>`` adapts a new identity from the EMA bundles.
+``--identity_parallel`` and ``torchrun`` as in ``cli.pretrain_face``, for
+both stages.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import time
 
 from ..config import OptimizationConfig, make_parser, parse_all, save_cfg
 from ..device import resolve_device
+from ..parallel.mesh import shutdown
 from ..train.pretrain import pretrain_face, pretrain_mouth
-from .pretrain_face import (add_pretrain_args, check_identity_parallel,
-                            identity_list, save_identities, save_stage)
+from .pretrain_face import (add_pretrain_args, identity_list,
+                            save_identities, save_stage,
+                            start_identity_parallel)
 
 
 def main(argv=None) -> dict:
@@ -36,21 +41,26 @@ def main(argv=None) -> dict:
     parser.add_argument("--skip_mouth", action="store_true")
     add_pretrain_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
-    check_identity_parallel(args.identity_parallel)
-    dev = resolve_device(args.device)
+    resolve_device(args.device)     # no card: raise before reading anything
+    data_list = identity_list(mc.source_path, args.data_list)
+    group, dev, rank0 = start_identity_parallel(args, len(data_list))
+    idp = dict(identity_parallel=args.identity_parallel, group=group)
     t0 = time.time()
 
     def stage(name):
-        print(f"[pretrain] {name} (t={time.time() - t0:.0f}s)", flush=True)
+        if rank0:
+            print(f"[pretrain] {name} (t={time.time() - t0:.0f}s)",
+                  flush=True)
 
-    data_list = identity_list(mc.source_path, args.data_list)
     stage("pretrain_face")
     mcf = dataclasses.replace(mc, type="face")
     face = pretrain_face(mcf, oc, data_list, seed=args.seed,
-                         share_audio_net=args.share_audio_net, device=dev)
-    save_cfg(mc.model_path, mcf)
-    save_stage(mc.model_path, "face", face)
-    save_identities(mc.model_path, face)
+                         share_audio_net=args.share_audio_net, device=dev,
+                         **idp)
+    if rank0:
+        save_cfg(mc.model_path, mcf)
+        save_stage(mc.model_path, "face", face)
+        save_identities(mc.model_path, face)
     out = dict(face=face)
 
     if not args.skip_mouth:
@@ -61,11 +71,14 @@ def main(argv=None) -> dict:
             oc, densify_grad_threshold=OptimizationConfig()
             .densify_grad_threshold)
         out["mouth"] = pretrain_mouth(mcm, ocm, data_list, face,
-                                      seed=args.seed, device=dev)
-        save_stage(mc.model_path, "mouth", out["mouth"])
-    print(f"[pretrain] total wall: {time.time() - t0:.0f}s", flush=True)
+                                      seed=args.seed, device=dev, **idp)
+        if rank0:
+            save_stage(mc.model_path, "mouth", out["mouth"])
+    if rank0:
+        print(f"[pretrain] total wall: {time.time() - t0:.0f}s", flush=True)
     return out
 
 
 if __name__ == "__main__":
     main()
+    shutdown()

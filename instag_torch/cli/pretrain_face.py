@@ -6,6 +6,13 @@ instag_tpu/cli/pretrain_face.py).
         [--data_list id_a,id_b,id_c] [--share_audio_net] [--seed 0] \
         [--device cuda]
 
+    torchrun --standalone --nproc_per_node N -m instag_torch.cli.pretrain_face \
+        -s data/pretrain -m output/pretrain --identity_parallel
+
+``--identity_parallel`` trains the N identities at once, one a rank (one
+card a rank, NCCL), the UMF's gradients averaged over the ranks; rank 0
+alone writes the bundles.
+
 Each identity is a scene directory under ``--source_path`` (all of its
 subdirectories by default). Writes the JAX CLI's bundles, which either
 package reads: ``chkpnt_face_latest.pkl`` (the UMF and ``data_list``),
@@ -19,9 +26,13 @@ from __future__ import annotations
 
 import os
 
+import torch.distributed as dist
+
 from ..config import make_parser, parse_all, save_cfg
 from ..device import resolve_device
 from ..io.checkpoints import flax_params, save_bundle, state_to_dict
+from ..parallel.identity_parallel import check_identity_ranks
+from ..parallel.mesh import init_distributed, shutdown
 from ..train.pretrain import pretrain_face
 
 
@@ -32,19 +43,23 @@ def add_pretrain_args(parser) -> None:
                              "source_path; default: all of them")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--identity_parallel", action="store_true",
-                        help="one device per identity; the port has no "
-                             "device mesh and refuses it")
+                        help="train every identity at once, one rank an "
+                             "identity (under torchrun)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
 
 
-def check_identity_parallel(on: bool) -> None:
-    if on:
-        raise SystemExit(
-            "--identity_parallel: training every identity at once needs a "
-            "device mesh of one card an identity, which the port does not "
-            "have yet (ROADMAP queue 1, item 7); run without it for the "
-            "serial path")
+def start_identity_parallel(args, n_ids: int):
+    """``(group, device, rank0)`` of the run: with ``--identity_parallel``
+    the process group that ``torchrun`` describes, after refusing (before
+    joining it) a world size other than ``n_ids``; without it one process
+    on ``--device``."""
+    if not args.identity_parallel:
+        return None, resolve_device(args.device), True
+    check_identity_ranks(n_ids, dist.get_world_size() if dist.is_initialized()
+                         else int(os.environ.get("WORLD_SIZE", "1")))
+    group, dev = init_distributed(args.device)
+    return group, dev, group is None or dist.get_rank(group) == 0
 
 
 def identity_list(source_path: str, data_list: str) -> list[str]:
@@ -85,18 +100,21 @@ def main(argv=None) -> dict:
     add_pretrain_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
     mc.type = "face"
-    check_identity_parallel(args.identity_parallel)
-    dev = resolve_device(args.device)
+    resolve_device(args.device)     # no card: raise before reading anything
+    data_list = identity_list(mc.source_path, args.data_list)
+    group, dev, rank0 = start_identity_parallel(args, len(data_list))
 
-    res = pretrain_face(mc, oc, identity_list(mc.source_path, args.data_list),
-                        seed=args.seed, share_audio_net=args.share_audio_net,
-                        device=dev)
-    save_cfg(mc.model_path, mc)
-    save_stage(mc.model_path, "face", res)
-    save_identities(mc.model_path, res)
-    print("pretrain_face done")
+    res = pretrain_face(mc, oc, data_list, seed=args.seed,
+                        share_audio_net=args.share_audio_net, device=dev,
+                        identity_parallel=args.identity_parallel, group=group)
+    if rank0:
+        save_cfg(mc.model_path, mc)
+        save_stage(mc.model_path, "face", res)
+        save_identities(mc.model_path, res)
+        print("pretrain_face done")
     return res
 
 
 if __name__ == "__main__":
     main()
+    shutdown()

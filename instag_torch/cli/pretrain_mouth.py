@@ -4,12 +4,14 @@ package in the same ``--model_path``.
 
     python -m instag_torch.cli.pretrain_mouth -s data/pretrain \
         -m output/pretrain --init_num 5000 --iterations 30000 \
-        [--data_list id_a,id_b] [--seed 0] [--device cuda]
+        [--data_list id_a,id_b] [--seed 0] [--identity_parallel] \
+        [--device cuda]
 
 Reads ``chkpnt_ema_face_latest.pkl`` (the frozen face UMF, and the
 identities when ``--data_list`` is not given) and each
 ``<identity>_face_latest.pkl`` (the frozen face cloud); writes
 ``chkpnt_mouth_latest.pkl`` and ``chkpnt_ema_mouth_latest.pkl``.
+``--identity_parallel`` and ``torchrun`` as in ``cli.pretrain_face``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,16 @@ from ..device import resolve_device
 from ..io.checkpoints import bundle_list, load_bundle, state_from_dict
 from ..io.from_jax import load_motion_net
 from ..models.motion import MotionNetwork
+from ..parallel.mesh import shutdown
 from ..train.pretrain import pretrain_mouth
-from .pretrain_face import add_pretrain_args, check_identity_parallel, \
-    save_stage
+from .pretrain_face import (add_pretrain_args, save_stage,
+                            start_identity_parallel)
+
+
+def face_identities(model_path: str) -> list[str]:
+    """The identities of the face pre-training run in ``model_path``."""
+    return bundle_list(load_bundle(os.path.join(
+        model_path, "chkpnt_ema_face_latest.pkl"))["data_list"])
 
 
 def load_face_result(model_path: str, data_list: list[str] | None,
@@ -47,18 +56,22 @@ def main(argv=None) -> dict:
     add_pretrain_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
     mc.type = "mouth"
-    check_identity_parallel(args.identity_parallel)
-    dev = resolve_device(args.device)
+    resolve_device(args.device)     # no card: raise before reading anything
+    names = (args.data_list.split(",") if args.data_list
+             else face_identities(mc.model_path))
+    group, dev, rank0 = start_identity_parallel(args, len(names))
 
-    face, data_list = load_face_result(
-        mc.model_path, args.data_list.split(",") if args.data_list else None,
-        mc.audio_extractor, dev)
+    face, data_list = load_face_result(mc.model_path, names,
+                                       mc.audio_extractor, dev)
     res = pretrain_mouth(mc, oc, data_list, face, seed=args.seed,
-                         device=dev)
-    save_stage(mc.model_path, "mouth", res)
-    print("pretrain_mouth done")
+                         device=dev, identity_parallel=args.identity_parallel,
+                         group=group)
+    if rank0:
+        save_stage(mc.model_path, "mouth", res)
+        print("pretrain_mouth done")
     return res
 
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -5,7 +5,15 @@ instag_tpu/cli/train_face.py).
         --iterations 10000 --N_views 250 --init_num 1000 [--long] \
         [--pretrain_path output/pretrain/chkpnt_ema_face_latest.pkl] \
         [--start_checkpoint output/<run>/chkpnt_face_latest.pkl] \
-        [--test_every 2000] [--seed 0] [--device cuda]
+        [--test_every 2000] [--seed 0] [--data_parallel B] [--device cuda]
+
+    torchrun --standalone --nproc_per_node W -m instag_torch.cli.train_face \
+        -s data/<id> -m output/<run> --data_parallel B
+
+``--data_parallel B`` trains B frames a step (JAX's ``--data_parallel``):
+on one card all B in one process, under ``torchrun`` ``B / W`` on each of
+W ranks (W must divide B), one card a rank (NCCL), rank 0 alone writing
+the outputs and logs.
 
 Writes ``<model_path>/cfg_args.json``, ``chkpnt_face_latest.pkl`` (the JAX
 CLI's bundle, which either package reads) and
@@ -20,13 +28,15 @@ from __future__ import annotations
 
 import os
 
+import torch.distributed as dist
+
 from ..config import make_parser, parse_all, save_cfg
 from ..data.dataset import load_frames
-from ..device import resolve_device
 from ..io.checkpoints import (load_bundle, save_bundle, save_gaussian_ply,
                               train_bundle)
 from ..io.from_jax import load_motion_net
 from ..models.motion import MotionNetwork
+from ..parallel.mesh import init_distributed, shutdown
 from ..train.common import (FrameMeta, build_frame_batch, frame_source,
                             load_training_frames, streams_training_frames)
 from ..train.face import train_face
@@ -37,18 +47,25 @@ def add_port_args(parser) -> None:
     ``--data_parallel`` and ``--device``."""
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="frames per optimizer step; more than 1 needs "
-                             "a device mesh, which the port lacks")
+                        help="frames per optimizer step; under torchrun each "
+                             "of the W ranks trains B / W of them")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
 
 
-def check_data_parallel(n: int) -> None:
-    if n > 1:
+def start_data_parallel(args):
+    """``(group, device, rank0)`` of the run: the process group that
+    ``torchrun`` describes (``None`` for one process), this rank's device
+    and whether this is rank 0. Refuses, before joining the group, a
+    ``--data_parallel`` that the world size does not divide."""
+    w = (dist.get_world_size() if dist.is_initialized()
+         else int(os.environ.get("WORLD_SIZE", "1")))
+    if args.data_parallel < 1 or args.data_parallel % w:
         raise SystemExit(
-            f"--data_parallel {n}: sharding the frame batch needs a device "
-            f"mesh of {n} cards, which the port does not have yet (ROADMAP "
-            "queue 1, item 7); run with --data_parallel 1")
+            f"--data_parallel {args.data_parallel}: the {w} ranks must "
+            f"divide the frames of a step; pass a multiple of {w}")
+    group, dev = init_distributed(args.device)
+    return group, dev, group is None or dist.get_rank(group) == 0
 
 
 def load_pretrain(path: str) -> dict:
@@ -66,8 +83,7 @@ def main(argv=None) -> dict:
     add_port_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
     mc.type = "face"
-    check_data_parallel(args.data_parallel)
-    dev = resolve_device(args.device)
+    group, dev, rank0 = start_data_parallel(args)
 
     umf_net = None
     if args.pretrain_path:
@@ -79,7 +95,7 @@ def main(argv=None) -> dict:
     records = load_training_frames(mc, dev, stream)
     batch = frame_source(records, with_priors=True, stream=stream, device=dev)
     val_batch = None
-    if mc.model_path or args.test_every:
+    if rank0 and (mc.model_path or args.test_every):
         try:
             val_batch = build_frame_batch(load_frames(
                 mc.source_path, "val", mc.audio_extractor, -1, device=dev),
@@ -91,9 +107,10 @@ def main(argv=None) -> dict:
                      umf_net=umf_net, long=args.long, seed=args.seed,
                      resume_bundle=resume, log_dir=mc.model_path or None,
                      test_every=args.test_every, val_batch=val_batch,
-                     device=dev)
+                     device=dev, data_parallel=args.data_parallel,
+                     group=group)
 
-    if mc.model_path:
+    if rank0 and mc.model_path:
         save_cfg(mc.model_path, mc)
         save_bundle(os.path.join(mc.model_path, "chkpnt_face_latest.pkl"),
                     train_bundle(res, oc.iterations,
@@ -101,10 +118,12 @@ def main(argv=None) -> dict:
         save_gaussian_ply(os.path.join(
             mc.model_path, "point_cloud", f"iteration_{oc.iterations}_face",
             "point_cloud.ply"), res["state"])
-    print(f"train_face done: final loss "
-          f"{sum(res['losses'][-50:]) / 50:.4f}")
+    if rank0:
+        print(f"train_face done: final loss "
+              f"{sum(res['losses'][-50:]) / 50:.4f}")
     return res
 
 
 if __name__ == "__main__":
     main()
+    shutdown()

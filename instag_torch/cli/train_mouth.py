@@ -4,11 +4,12 @@ instag_tpu/cli/train_mouth.py).
     python -m instag_torch.cli.train_mouth -s data/<id> -m output/<run> \
         --iterations 10000 [--long] [--pretrain_path ...] \
         [--start_checkpoint output/<run>/chkpnt_mouth_latest.pkl] \
-        [--seed 0] [--device cuda]
+        [--seed 0] [--data_parallel B] [--device cuda]
 
 Reads the run's ``chkpnt_face_latest.pkl`` (either package's) for the
 frozen face branch, and writes ``chkpnt_mouth_latest.pkl`` and
-``point_cloud/iteration_<n>_mouth/point_cloud.ply``.
+``point_cloud/iteration_<n>_mouth/point_cloud.ply``. ``--data_parallel``
+and ``torchrun`` as in ``cli.train_face``.
 """
 
 from __future__ import annotations
@@ -16,15 +17,15 @@ from __future__ import annotations
 import os
 
 from ..config import make_parser, parse_all
-from ..device import resolve_device
 from ..io.checkpoints import (load_branch, load_bundle, save_bundle,
                               save_gaussian_ply, train_bundle)
 from ..io.from_jax import load_motion_net
 from ..models.motion import MouthMotionNetwork
+from ..parallel.mesh import shutdown
 from ..train.common import (FrameMeta, frame_source, load_training_frames,
                             streams_training_frames)
 from ..train.mouth import train_mouth
-from .train_face import add_port_args, check_data_parallel, load_pretrain
+from .train_face import add_port_args, load_pretrain, start_data_parallel
 
 
 def main(argv=None) -> dict:
@@ -35,8 +36,7 @@ def main(argv=None) -> dict:
     add_port_args(parser)
     mc, _, oc, args = parse_all(parser, argv)
     mc.type = "mouth"
-    check_data_parallel(args.data_parallel)
-    dev = resolve_device(args.device)
+    group, dev, rank0 = start_data_parallel(args)
 
     face = load_branch(os.path.join(mc.model_path, "chkpnt_face_latest.pkl"),
                        "face", mc.audio_extractor, dev)
@@ -51,17 +51,21 @@ def main(argv=None) -> dict:
     batch = frame_source(records, stream=stream, device=dev)
     res = train_mouth(mc, oc, batch, FrameMeta.from_records(records), face,
                       umf_net=umf_net, long=args.long, seed=args.seed,
-                      resume_bundle=resume, device=dev)
+                      resume_bundle=resume, device=dev,
+                      data_parallel=args.data_parallel, group=group)
 
-    save_bundle(os.path.join(mc.model_path, "chkpnt_mouth_latest.pkl"),
-                train_bundle(res, oc.iterations))
-    save_gaussian_ply(os.path.join(
-        mc.model_path, "point_cloud", f"iteration_{oc.iterations}_mouth",
-        "point_cloud.ply"), res["state"])
-    print(f"train_mouth done: final loss "
-          f"{sum(res['losses'][-50:]) / 50:.4f}")
+    if rank0:
+        save_bundle(os.path.join(mc.model_path, "chkpnt_mouth_latest.pkl"),
+                    train_bundle(res, oc.iterations))
+        save_gaussian_ply(os.path.join(
+            mc.model_path, "point_cloud", f"iteration_{oc.iterations}_mouth",
+            "point_cloud.ply"), res["state"])
+    if rank0:
+        print(f"train_mouth done: final loss "
+              f"{sum(res['losses'][-50:]) / 50:.4f}")
     return res
 
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -59,9 +59,10 @@ class FrameRecord:
     view_transform: np.ndarray       # [4,4] transposed W2C
     full_proj_transform: np.ndarray  # [4,4] transposed W2C @ P
     camera_center: np.ndarray        # [3]
-    image: torch.Tensor              # [H,W,3] uint8, on the reader's device
-                                     # (the host for a host read)
-    bg: torch.Tensor                 # [H,W,3] uint8 torso over bc.jpg, same
+    image: torch.Tensor | None       # [H,W,3] uint8, on the reader's device
+                                     # (the host for a host read; None
+                                     # when read without images)
+    bg: torch.Tensor | None          # [H,W,3] uint8 torso over bc.jpg, same
     face_mask: np.ndarray            # [H,W] bool
     hair_mask: np.ndarray
     mouth_mask: np.ndarray
@@ -122,25 +123,28 @@ def load_frames(path: str, split: str = "train",
                 audio_file: str = "", preload: bool = True,
                 with_priors: bool | None = None,
                 device: str | torch.device = "cuda",
-                host: bool = False) -> list[FrameRecord]:
+                host: bool = False, images: bool = True) -> list[FrameRecord]:
     """One split of a scene directory as FrameRecords, memoized per
     (path, split, arguments, device, the transforms file's mtime). With
     ``host`` the frames decode on ``device`` in chunks into host memory and
-    the read is not memoized."""
+    the read is not memoized. Without ``images`` no frame is decoded and
+    the records' ``image`` and ``bg`` are None: the cameras, action units,
+    landmarks and masks alone."""
     dev = resolve_device(device)
     if host:
         return _load_frames_uncached(path, split, audio_extractor, n_views,
-                                     audio_file, with_priors, dev, True)
+                                     audio_file, with_priors, dev, True,
+                                     images)
     tf = os.path.join(path, f"transforms_{split}.json")
     key = (os.path.abspath(path), split, audio_extractor, n_views,
-           audio_file, preload, with_priors, str(dev),
+           audio_file, preload, with_priors, str(dev), images,
            os.path.getmtime(tf) if os.path.exists(tf) else 0.0)
     with _FRAMES_LOCK:
         if key in _FRAMES_CACHE:
             return _FRAMES_CACHE[key]
         records = _load_frames_uncached(path, split, audio_extractor,
                                         n_views, audio_file, with_priors,
-                                        dev)
+                                        dev, images=images)
         while len(_FRAMES_CACHE) >= _FRAMES_CACHE_MAX:
             _FRAMES_CACHE.pop(next(iter(_FRAMES_CACHE)))
         _FRAMES_CACHE[key] = records
@@ -186,7 +190,8 @@ def _decode_frames(path: str, ids: list[int], dev: torch.device,
 def _load_frames_uncached(path: str, split: str, audio_extractor: str,
                           n_views: int, audio_file: str,
                           with_priors: bool | None, dev: torch.device,
-                          host: bool = False) -> list[FrameRecord]:
+                          host: bool = False,
+                          images: bool = True) -> list[FrameRecord]:
     with open(os.path.join(path, f"transforms_{split}.json")) as f:
         contents = json.load(f)
     focal = contents["focal_len"]
@@ -250,18 +255,14 @@ def _load_frames_uncached(path: str, split: str, audio_extractor: str,
         if nc and dc:
             normal_dir, depth_dir = nc[0], dc[0]
 
-    gt_all, bg_all = _decode_frames(
-        path, [frame["img_id"] for frame in frames], dev, host)
+    gt_all = bg_all = None
+    if images:
+        gt_all, bg_all = _decode_frames(
+            path, [frame["img_id"] for frame in frames], dev, host)
 
     records = []
     for idx, frame in enumerate(frames):
         img_id = frame["img_id"]
-        image = gt_all[idx]
-        h, w = image.shape[:2]
-        fovx, fovy = focal2fov(focal, w), focal2fov(focal, h)
-        view_T, full_T, campos, _, _ = _camera_matrices(
-            frame["transform_matrix"], fovx, fovy)
-
         teeth = np.load(os.path.join(path, "teeth_mask", f"{img_id}.npy"))
         parsing = read_png(os.path.join(path, "parsing", f"{img_id}.png"),
                            channels=3).astype(np.float32)
@@ -271,6 +272,11 @@ def _load_frames_uncached(path: str, split: str, audio_extractor: str,
                      & (parsing[:, :, 2] < 1))
         mouth_mask = ((parsing[:, :, 0] == 100) & (parsing[:, :, 1] == 100)
                       & (parsing[:, :, 2] == 100)) | teeth
+        image = None if gt_all is None else gt_all[idx]
+        h, w = (parsing if image is None else image).shape[:2]
+        fovx, fovy = focal2fov(focal, w), focal2fov(focal, h)
+        view_T, full_T, campos, _, _ = _camera_matrices(
+            frame["transform_matrix"], fovx, fovy)
 
         aud_idx = idx if audio_file else img_id
         if aud_idx >= aud.shape[0]:
@@ -285,7 +291,8 @@ def _load_frames_uncached(path: str, split: str, audio_extractor: str,
         records.append(FrameRecord(
             uid=idx, img_id=img_id, width=w, height=h, fovx=fovx, fovy=fovy,
             view_transform=view_T, full_proj_transform=full_T,
-            camera_center=campos, image=image, bg=bg_all[idx],
+            camera_center=campos, image=image,
+            bg=None if bg_all is None else bg_all[idx],
             face_mask=face_mask, hair_mask=hair_mask, mouth_mask=mouth_mask,
             auds=auds, blink=float(np.clip(au_blink[img_id], 0, 2) / 2),
             au25=(float(au25[min(img_id, len(au25) - 1)]),) + au25_pcts,

@@ -14,13 +14,15 @@ on x86 (its universal-intrinsics paths and its IPP HAL), on both machines:
     reading only the canvas pixels the taps touch;
   * ``resize_linear_f32``: ``INTER_LINEAR`` on float32, ``s0 + f (s1 -
     s0)`` with the fraction from float64 and one rounding (a fused
-    multiply-add), horizontally and then vertically. OpenCV's IPP route
-    rounds differently where a multi-channel image is widened 8-fold or
-    more; no caller comes near that;
+    multiply-add), horizontally and then vertically, of 1 channel, or of
+    3 or 4 channels widened less than 8-fold; outside that domain
+    (OpenCV's IPP route rounds 2 channels, and 3 or 4 widened 8-fold or
+    more, otherwise) it raises ``ValueError``. No caller comes near it;
   * ``resize_nearest``: ``INTER_NEAREST``;
-  * ``fill_poly``: ``fillPoly`` of one polygon with 8-connected edges, for
-    vertices inside the image (OpenCV's clipping of vertices outside it is
-    followed, but not held byte-equal).
+  * ``fill_poly``: ``fillPoly`` of one polygon with 8-connected edges,
+    vertices inside or outside the image (OpenCV 5 builds the edge of a
+    clipped segment from its clipped x and, unless the clipped segment is
+    horizontal, its clipped y).
 
 Sizes are ``(width, height)``, as ``cv2.resize`` takes them.
 """
@@ -131,6 +133,11 @@ def resize_linear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     if img.shape[:2] == (dh, dw):
         return img.copy()
     a, flat = _as_hwc(img)
+    if not flat and (a.shape[2] not in (3, 4) or dw >= 8 * a.shape[1]):
+        raise ValueError(
+            f"resize_linear_f32 holds OpenCV's bytes for 1 channel, and for "
+            f"3 or 4 channels widened less than 8-fold; not {a.shape[2]} "
+            f"channels from width {a.shape[1]} to {dw}")
     x0, x1, fx = _clamped(a.shape[1], dw, np.float64)
     y0, y1, fy = _clamped(a.shape[0], dh, np.float64)
     fx = fx.astype(np.float32)[None, :, None]
@@ -253,9 +260,13 @@ def fill_poly(img: np.ndarray, pts, value=1) -> np.ndarray:
         _line8(img, value, p0, p1)
         c0, c1 = p0, p1
         if not _inside(w, h, p0, p1):
+            # OpenCV 5 takes the clipped x always, the clipped y only when
+            # the clipped segment is not horizontal
             _, q0, q1 = _clip_line(w, h, p0, p1)
             if q0[1] != q1[1]:
                 c0, c1 = q0, q1
+            else:
+                c0, c1 = (q0[0], p0[1]), (q1[0], p1[1])
         if p0[1] != p1[1]:
             dx = _trunc_div((c1[0] - c0[0]) << _XY_SHIFT, c1[1] - c0[1])
             top, c = (p0, c0) if p0[1] < p1[1] else (p1, c1)

@@ -1,7 +1,8 @@
 """Gaussian point-cloud state (counterpart of instag_tpu/models/gaussians.py):
 the state with its densification statistics, the activated views, the
 cloud made from points, the per-attribute Adam, the per-step statistics
-updates, densification and pruning, and the capacity resize.
+updates (of one frame, or of a frame batch), densification and pruning,
+and the capacity resize.
 
 The cloud lives at a fixed capacity with an ``alive`` mask, as in the JAX
 package: dead slots are zero-padded and masked out of projection.
@@ -200,26 +201,47 @@ def adam_update(params: GaussianParams, grads: GaussianParams,
 # --------------------------------------------------------------------------
 
 @torch.no_grad()
-def add_densification_stats(state: GaussianState, means2d_grad: torch.Tensor,
-                            visible: torch.Tensor) -> GaussianState:
-    """accum += ||pixel-space position grad||, denom += 1 for visible live
-    points."""
-    norm = torch.linalg.vector_norm(means2d_grad[:, :2], dim=-1)
+def frame_stats(state: GaussianState, means2d_grads: torch.Tensor,
+                radii: torch.Tensor, visible: torch.Tensor):
+    """What a batch of frames adds to the densification statistics, from
+    their [B, C, 2] pixel-space position gradients and [B, C] radii and
+    visibility: ``(accum, denom, max_radii)``, each [C]. ``accum`` and
+    ``denom`` sum each visible live point's gradient norm and count over
+    the frames, as B serial steps add them; ``max_radii`` is each point's
+    largest radius over the frames that see it (-inf where none does).
+    Frames split over processes add their sums and maximum first."""
+    norm = torch.linalg.vector_norm(means2d_grads[..., :2], dim=-1)
     upd = visible & state.alive
-    zero = torch.zeros_like(norm)
-    return state.replace(
-        xyz_grad_accum=state.xyz_grad_accum + torch.where(upd, norm, zero),
-        denom=state.denom + upd.to(torch.float32))
+    neg = torch.full_like(norm, float("-inf"))
+    return (torch.where(upd, norm, torch.zeros_like(norm)).sum(0),
+            upd.to(torch.float32).sum(0),
+            torch.where(visible, radii.to(torch.float32), neg).amax(0))
 
 
 @torch.no_grad()
-def update_max_radii(state: GaussianState, radii: torch.Tensor,
-                     visible: torch.Tensor) -> GaussianState:
-    """The largest screen radius each visible point has had since the last
-    densification."""
-    r = torch.maximum(state.max_radii2d, radii.to(torch.float32))
-    return state.replace(max_radii2d=torch.where(visible, r,
-                                                 state.max_radii2d))
+def add_frame_stats(state: GaussianState, accum: torch.Tensor,
+                    denom: torch.Tensor,
+                    max_radii: torch.Tensor) -> GaussianState:
+    """The state with ``frame_stats``' increments added: accum += accum,
+    denom += denom, and the largest screen radius each seen point has had
+    since the last densification raised to ``max_radii``."""
+    seen = max_radii > float("-inf")
+    return state.replace(
+        xyz_grad_accum=state.xyz_grad_accum + accum,
+        denom=state.denom + denom,
+        max_radii2d=torch.where(seen, torch.maximum(state.max_radii2d,
+                                                    max_radii),
+                                state.max_radii2d))
+
+
+def add_densification_stats(state: GaussianState, means2d_grad: torch.Tensor,
+                            radii: torch.Tensor,
+                            visible: torch.Tensor) -> GaussianState:
+    """One frame's statistics ([C, 2], [C], [C]) added: accum += ||pixel-
+    space position grad||, denom += 1 for visible live points, and the
+    visible points' largest radius raised."""
+    return add_frame_stats(state, *frame_stats(
+        state, means2d_grad[None], radii[None], visible[None]))
 
 
 def _zero_moments_at(opt: AdamState, where: torch.Tensor) -> AdamState:

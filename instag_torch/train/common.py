@@ -15,6 +15,8 @@ import torch
 
 from ..device import resolve_device
 from ..models import gaussians as G
+from ..parallel.comm import all_reduce_sum, rank_slot, world
+from ..parallel.mesh import shard_rows
 from ..render import Camera
 from ..utils.general import expon_lr
 from ..utils.losses import l1_loss, ssim
@@ -226,20 +228,44 @@ def gaussian_backward(loss_fn, state: G.GaussianState, nets):
     """Differentiate ``loss_fn(state, off) -> (loss, out)`` with respect to
     the state's parameters, the offset ``off`` [C, 2] added to the
     projected means (the densification statistics read its gradient) and
-    the parameters of ``nets``. Returns ``(loss, out, grads, off_grad)``:
-    ``grads`` a GaussianParams, and each net parameter's ``.grad``, zeros
-    where a parameter does not reach the loss, as the JAX package's
-    gradients are (an optimizer then steps every parameter, as optax does,
-    and its bias correction keeps count)."""
+    the parameters of ``nets``: ``frames_backward`` of one frame. Returns
+    ``(loss, out, grads, off_grad)``, with each net parameter's gradient
+    in its ``.grad``."""
+    loss, outs, grads, offs = frames_backward(
+        lambda st, off, _: loss_fn(st, off), state, nets, [None], 1)
+    return loss, outs[0], grads, offs[0]
+
+
+def frames_backward(loss_fn, state: G.GaussianState, nets, rows, dp: int):
+    """Differentiate the mean loss over a batch of ``dp`` frames, of which
+    this process renders ``rows`` (all of them in one process):
+    ``loss_fn(state, off, row) -> (loss, out)`` renders one frame, and each
+    frame's backward runs before the next frame renders, so that one
+    frame's graph is alive at a time. Returns ``(loss, outs, grads,
+    off_grads)``: this process's share of the mean loss, each frame's
+    ``out``, the Gaussian gradients as a GaussianParams and the offsets'
+    [b, C, 2] gradients, scaled back by ``dp`` to each frame's own, as a
+    serial step's (the JAX package's ``g_off * dp``). Each net parameter's
+    gradient is left in its ``.grad``, zeros where a parameter does not
+    reach the loss, as the JAX package's gradients are (an optimizer then
+    steps every parameter, as optax does, and its bias correction keeps
+    count). Nothing is summed over processes here."""
     leaves = G.GaussianParams(**{
         n: getattr(state.params, n).detach().requires_grad_(True)
         for n in G.PARAM_FIELDS})
-    off = torch.zeros((state.capacity, 2), device=state.params.xyz.device,
-                      requires_grad=True)
+    st = state.replace(params=leaves)
     for net in nets:
         net.zero_grad(set_to_none=True)
-    loss, out = loss_fn(state.replace(params=leaves), off)
-    loss.backward()
+    loss_sum = leaves.xyz.new_zeros(())
+    outs, offs = [], []
+    for row in rows:
+        off = torch.zeros((state.capacity, 2), device=state.params.xyz.device,
+                          requires_grad=True)
+        loss, out = loss_fn(st, off, row)
+        (loss / dp).backward()
+        loss_sum = loss_sum + loss.detach()
+        outs.append(out)
+        offs.append(off.grad * dp)
     for net in nets:
         for p in net.parameters():
             if p.grad is None:
@@ -248,7 +274,98 @@ def gaussian_backward(loss_fn, state: G.GaussianState, nets):
         n: (getattr(leaves, n).grad if getattr(leaves, n).grad is not None
             else torch.zeros_like(getattr(leaves, n)))
         for n in G.PARAM_FIELDS})
-    return loss.detach(), out, grads, off.grad
+    return loss_sum / dp, outs, grads, torch.stack(offs)
+
+
+def adaptation_grads(step, state: G.GaussianState, rows, frame_loss):
+    """The gradients of the step the face and mouth adaptation share, over
+    ``step.dp`` frames of which this rank renders ``rows`` (``[i]`` for a
+    serial step): ``frame_loss(state, off, i) -> (loss, out)`` renders
+    frame ``i``. The Gaussian, UMF and PMF gradients of the mean loss, the
+    loss and the frames' densification statistics (``G.frame_stats``) are
+    summed over the ranks of ``step.group`` in one bucket, the statistics'
+    maximum radius as every rank's slot, maxed here. Returns ``(mean loss,
+    Gaussian grads, (accum, denom, max_radii))``, with the UMF and PMF
+    gradients in their ``.grad``."""
+    if state.params.xyz.device.type != step.device.type:
+        raise ValueError(f"state lives on {state.params.xyz.device}, "
+                         f"not {step.device}")
+    nets = (step.umf_net, step.pmf_net)
+    loss, outs, grads, g_offs = frames_backward(frame_loss, state, nets,
+                                                rows, step.dp)
+    radii = torch.stack([o.radii for o in outs])
+    accum, denom, max_radii = G.frame_stats(state, g_offs, radii, radii > 0)
+    net_params = [p for net in nets for p in net.parameters()]
+    k, n = len(G.PARAM_FIELDS), len(net_params)
+    summed = all_reduce_sum(
+        [getattr(grads, f) for f in G.PARAM_FIELDS]
+        + [p.grad for p in net_params]
+        + [loss, accum, denom, rank_slot(max_radii, step.group)], step.group)
+    for p, g in zip(net_params, summed[k:k + n]):
+        p.grad = g
+    loss, accum, denom, slots = summed[k + n:]
+    return (loss, G.GaussianParams(**dict(zip(G.PARAM_FIELDS, summed[:k]))),
+            (accum, denom, slots.amax(0)))
+
+
+def adaptation_step(step, state: G.GaussianState, gopt: G.AdamState,
+                    rows, it: int, frame_loss):
+    """``adaptation_grads``, then one update of the Gaussians (Adam at
+    ``gaussian_lrs``) and of ``step``'s UMF and PMF, which every rank
+    applies alike, and the statistics added. Returns ``(state, gopt, mean
+    loss)``."""
+    loss, grads, stats = adaptation_grads(step, state, rows, frame_loss)
+    params, gopt = G.adam_update(
+        state.params, grads, gopt,
+        gaussian_lrs(step.opt_cfg, it, step.spatial_lr_scale), state.alive)
+    step.umf_opt.step()
+    step.umf_sched.step()
+    step.pmf_opt.step()
+    return G.add_frame_stats(state.replace(params=params), *stats), gopt, loss
+
+
+def check_data_parallel(dp: int, group) -> bool:
+    """Refuse a ``dp`` that the group's world size does not divide;
+    returns whether this is rank 0 (the rank that logs and writes)."""
+    rank, w = world(group)
+    if dp < 1 or dp % w:
+        raise ValueError(f"--data_parallel {dp} does not divide over the "
+                         f"{w} ranks of the process group")
+    return rank == 0
+
+
+def local_block(batch, draws: list, dp: int, group):
+    """A block's frames for this rank: ``draws`` holds one ``(row, extra)``
+    a step, ``row`` the step's ``dp`` frame indices. Returns ``(frames,
+    steps)``: ``steps`` holds ``(i, extra)`` with ``i`` a frame index
+    (``dp`` = 1) or this rank's ``dp / W`` indices (a list); a
+    ``HostFrameStore`` uploads just those frames, which ``i`` then counts
+    from 0."""
+    rows = [(row[0] if dp == 1 else list(row[shard_rows(dp, group)]), x)
+            for row, x in draws]
+    if not isinstance(batch, HostFrameStore):
+        return batch, rows
+    flat = [j for i, _ in rows for j in (i if dp > 1 else [i])]
+    ks = iter(range(len(flat)))
+    return batch.gather(flat), [
+        ([next(ks) for _ in i] if dp > 1 else next(ks), x) for i, x in rows]
+
+
+def frame_camera(frames: FrameBatch, i: int, device) -> Camera:
+    """Frame ``i``'s camera on ``device`` (from a batch on the device, or
+    a ``HostFrameStore``'s host batch)."""
+    return frames.camera(i).to(device)
+
+
+def replica_tensors(state: G.GaussianState, **nets) -> dict:
+    """The replicated tensors of a data-parallel run, by name: the
+    Gaussian parameters and alive mask, and each net's parameters."""
+    out = {f"gaussians.{n}": getattr(state.params, n)
+           for n in G.PARAM_FIELDS}
+    out["gaussians.alive"] = state.alive
+    for tag, net in nets.items():
+        out.update({f"{tag}.{n}": p for n, p in net.named_parameters()})
+    return out
 
 
 def rgb_loss(image: torch.Tensor, gt: torch.Tensor,

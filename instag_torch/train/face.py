@@ -1,5 +1,6 @@
-"""Few-shot face adaptation (counterpart of instag_tpu/train/face.py, serial
-path): the step and the ``train_face`` loop.
+"""Few-shot face adaptation (counterpart of instag_tpu/train/face.py): the
+step and the ``train_face`` loop, serial or ``dp`` frames a step over the
+ranks of a process group (``parallel/``).
 
 One step renders the face branch with the PMF's align head and the UMF
 attention maps, and takes the loss of the JAX package's ``step_loss``:
@@ -57,8 +58,12 @@ from ..ops.rasterize import RasterizeConfig, selection_stats
 from ..render import render_motion
 from ..utils.losses import normalize_depth, patchify
 from ..utils.sh import eval_sh
+from ..parallel.comm import check_replicas
+from ..parallel.mesh import replicate
 from .common import (FrameBatch, FrameMeta, HostFrameStore,
-                     gaussian_backward, gaussian_lrs, rect_mask, rgb_loss)
+                     adaptation_step, check_data_parallel,
+                     frame_camera, gaussian_backward,
+                     local_block, rect_mask, replica_tensors, rgb_loss)
 from .optim import pmf_optimizer, umf_optimizer
 
 
@@ -86,8 +91,10 @@ class _FaceStep:
                  spatial_lr_scale: float, has_priors: bool,
                  device: str | torch.device, total_iters: int,
                  warm_step: int, long: bool, lpips: nn.Module | None,
-                 lpips_patches: tuple[int, ...], lips_crop: int):
+                 lpips_patches: tuple[int, ...], lips_crop: int,
+                 dp: int = 1, group=None):
         self.device = resolve_device(device)
+        self.dp, self.group = dp, group
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.umf_net, self.pmf_net = umf_net, pmf_net
         self.spatial_lr_scale = spatial_lr_scale
@@ -210,21 +217,12 @@ class _FaceStep:
             state, (self.umf_net, self.pmf_net))
 
     def __call__(self, state: G.GaussianState, gopt: G.AdamState,
-                 batch: FrameBatch, i: int, it: int, flags: Flags,
+                 batch: FrameBatch, i, it: int, flags: Flags,
                  patch_idx: int = 0):
-        loss, out, grads, g_off = self.loss_and_grads(state, batch, i, flags,
-                                                      patch_idx)
-        lrs = gaussian_lrs(self.opt_cfg, it, self.spatial_lr_scale)
-        params, gopt = G.adam_update(state.params, grads, gopt, lrs,
-                                     state.alive)
-        self.umf_opt.step()
-        self.umf_sched.step()
-        self.pmf_opt.step()
-        visible = out.radii > 0
-        state = G.add_densification_stats(state.replace(params=params),
-                                          g_off, visible)
-        state = G.update_max_radii(state, out.radii, visible)
-        return state, gopt, loss
+        return adaptation_step(
+            self, state, gopt, i if self.dp > 1 else [i], it,
+            lambda st, off, j: self.loss(st, off, batch, j, flags,
+                                         patch_idx))
 
 
 def make_face_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
@@ -234,16 +232,25 @@ def make_face_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                    total_iters: int = 10000, warm_step: int = 3000,
                    long: bool = False, lpips: nn.Module | None = None,
                    lpips_patches: tuple[int, ...] = (),
-                   lips_crop: int = 96) -> _FaceStep:
+                   lips_crop: int = 96, dp: int = 1,
+                   group=None) -> _FaceStep:
     """The face adaptation step on ``device`` (the nets, the state and the
     batch must live there). The UMF's learning-rate schedule runs over
     ``total_iters`` steps with ``warm_step`` and ``long`` (see
     ``optim.umf_schedule``); ``long`` also drops the priors. The LPIPS
     phase runs when ``lpips`` (a frozen ``models.lpips.LPIPS``) and
-    ``lpips_patches`` (the patch sides) are given."""
+    ``lpips_patches`` (the patch sides) are given.
+
+    ``dp=B`` trains B frames a step, as the JAX package's ``dp=B`` block:
+    the step's frame argument is then a list, this rank's ``B / W`` of the
+    B frames (all B without a process ``group``); each renders through
+    the kernels, the loss is the mean over the B frames, the Gaussian, UMF
+    and PMF gradients are reduced over the ranks before one update that
+    every rank applies alike, and the per-frame statistics add as B serial
+    steps' would."""
     return _FaceStep(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
                      has_priors, device, total_iters, warm_step, long,
-                     lpips, lpips_patches, lips_crop)
+                     lpips, lpips_patches, lips_crop, dp, group)
 
 
 def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
@@ -253,22 +260,25 @@ def make_face_block(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                     total_iters: int = 10000, warm_step: int = 3000,
                     long: bool = False, lpips: nn.Module | None = None,
                     lpips_patches: tuple[int, ...] = (),
-                    lips_crop: int = 96):
+                    lips_crop: int = 96, dp: int = 1, group=None):
     """``block(state, gopt, batch, idxs, its, flags, patch_idxs=None) ->
-    (state, gopt, losses)``: one step per frame index in ``idxs`` at the
-    iterations ``its`` (with the LPIPS patch sides ``patch_idxs``, 0 when
-    absent), all under ``flags``; ``losses`` [n] stays on the device."""
+    (state, gopt, losses)``: one step per frame index in ``idxs`` (with
+    ``dp`` > 1, per list of this rank's frames, see ``make_face_step``) at
+    the iterations ``its`` (with the LPIPS patch sides ``patch_idxs``, 0
+    when absent), all under ``flags``; ``losses`` [n] stays on the
+    device."""
     step = make_face_step(cfg, opt_cfg, umf_net, pmf_net, spatial_lr_scale,
                           has_priors, device, total_iters, warm_step, long,
-                          lpips, lpips_patches, lips_crop)
+                          lpips, lpips_patches, lips_crop, dp, group)
 
     def block(state: G.GaussianState, gopt: G.AdamState, batch: FrameBatch,
               idxs, its, flags: Flags, patch_idxs=None):
         losses = []
         patch_idxs = [0] * len(idxs) if patch_idxs is None else patch_idxs
         for i, it, p in zip(idxs, its, patch_idxs):
-            state, gopt, loss = step(state, gopt, batch, int(i), int(it),
-                                     flags, int(p))
+            i = [int(j) for j in i] if dp > 1 else int(i)
+            state, gopt, loss = step(state, gopt, batch, i, int(it), flags,
+                                     int(p))
             losses.append(loss)
         return state, gopt, torch.stack(losses)
 
@@ -289,7 +299,12 @@ def tile_saturation(cfg: RasterizeConfig, state: G.GaussianState,
     """The fraction of tiles of frame ``i`` whose true hit count exceeds
     ``max_per_tile`` (the K-cut diagnostic of the log line), as a 0-d
     tensor on the state's device."""
-    cam = batch.camera(i)
+    return camera_saturation(cfg, state, batch.camera(i))
+
+
+def camera_saturation(cfg: RasterizeConfig, state: G.GaussianState,
+                      cam) -> torch.Tensor:
+    """``tile_saturation`` seen from the camera ``cam``."""
     return selection_stats(cfg, state.params.xyz, state.get_scaling(),
                            state.get_rotation(), cam.view_transform,
                            cam.full_proj_transform, cam.camera_center,
@@ -380,7 +395,8 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                resume_bundle: dict | None = None,
                log_dir: str | None = None, test_every: int = 0,
                val_batch: FrameBatch | None = None,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               data_parallel: int = 1, group=None) -> dict:
     """Adapt a face cloud and the UMF to the frames of ``batch`` (on
     ``device``, or a ``HostFrameStore`` that uploads each block's frames)
     over ``opt_cfg.iterations`` steps. ``meta`` holds the frames' curriculum
@@ -405,8 +421,16 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     ``log_dir`` is given) and at the end. Returns the state, its Adam
     state ``gopt``, the nets and their optimizer states as bundle dicts
     (``umf_opt_state``, ``pmf_opt_state``), the per-step ``losses``, the
-    raster ``cfg``, the scene ``extent`` and ``max_sh_degree``."""
+    raster ``cfg``, the scene ``extent`` and ``max_sh_degree``.
+
+    ``data_parallel=B`` draws B curriculum frames a step (the JAX loop's
+    draws) and trains them as one step (``make_face_step(dp=B)``); under a
+    process ``group`` of W ranks each rank takes its ``B / W`` of them,
+    every rank holds the one seeded ``rng`` and split generator, the
+    replicated state and nets are checked bit for bit across the ranks at
+    every log point, and rank 0 alone logs and runs the reporter."""
     dev = resolve_device(device)
+    rank0 = check_data_parallel(data_parallel, group)
     stream = isinstance(batch, HostFrameStore)
     frames = batch.host if stream else batch
     where = batch.device if stream else batch.image.device
@@ -455,7 +479,9 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                           dev, total_iters=iterations, warm_step=warm_step,
                           long=long, lpips=lpips,
                           lpips_patches=patch_sizes if lpips_enabled else (),
-                          lips_crop=min(96, h, w))
+                          lips_crop=min(96, h, w), dp=data_parallel,
+                          group=group)
+    replicate((state, umf_net, pmf_net), group)
     if resume_bundle is not None:
         if "umf_opt_state" in resume_bundle:
             restore_umf_opt(umf_net, step.umf_opt, step.umf_sched,
@@ -465,7 +491,7 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                             resume_bundle["pmf_opt_state"])
 
     reporter = None
-    if log_dir or test_every:
+    if rank0 and (log_dir or test_every):
         from .report import FaceValReporter
         rep_train = (batch.gather(range(min(32, batch.num_frames)))
                      if stream else batch)
@@ -489,13 +515,12 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         n = end - it + 1
         draws = []
         for s in range(it, end + 1):
-            i = sample_frame_curriculum(rng, meta, stack, s, warm_step,
-                                        iterations)
-            draws.append((i, int(rng.integers(len(patch_sizes)))))
-        blk = batch
-        if stream:
-            blk = batch.gather([i for i, _ in draws])
-            draws = [(j, p) for j, (_, p) in enumerate(draws)]
+            row = [sample_frame_curriculum(rng, meta, stack, s, warm_step,
+                                           iterations)
+                   for _ in range(data_parallel)]
+            draws.append((row, int(rng.integers(len(patch_sizes)))))
+        last = draws[-1][0][-1]
+        blk, draws = local_block(batch, draws, data_parallel, group)
         block_losses = []
         for s, (i, p) in zip(range(it, end + 1), draws):
             state, gopt, loss = step(state, gopt, blk, i, s, _step_flags(
@@ -503,7 +528,7 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             block_losses.append(loss)
         losses.append(torch.stack(block_losses))
         it = end + 1
-        last = draws[-1][0]
+        cam = frame_camera(frames, last, dev)
 
         # host-side events at block ends
         if end % 1000 == 0:
@@ -523,21 +548,24 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             state, gopt = G.reset_opacity(state, gopt)
         if end > opt_cfg.densify_from_iter and end % interval == 0:
             state, gopt = _prune_green_and_depth(
-                state, gopt, blk.camera_center[last], not long)
+                state, gopt, cam.camera_center, not long)
 
         if end % log_every < n:
+            check_replicas(replica_tensors(state, umf=umf_net, pmf=pmf_net),
+                           group)
             # one read back for everything the log line needs
-            sat = tile_saturation(cfg, state, blk, last)
+            sat = camera_saturation(cfg, state, cam)
             recent = losses[-max(1, log_every // interval):]
             vals = torch.cat([state.num_alive().to(torch.float32)[None],
                               sat[None], *recent]).tolist()
             n_alive, sat, recent = int(vals[0]), vals[1], vals[2:]
             dropped = state.dropped_children
-            print(f"[face {end}/{iterations}] loss="
-                  f"{np.mean(recent[-log_every:]):.4f} pts={n_alive} "
-                  + (f"capacity_dropped={dropped} " if dropped else "")
-                  + (f"tile_sat={sat * 100:.1f}% " if sat > 0 else "")
-                  + f"t={time.time() - t0:.0f}s", flush=True)
+            if rank0:
+                print(f"[face {end}/{iterations}] loss="
+                      f"{np.mean(recent[-log_every:]):.4f} pts={n_alive} "
+                      + (f"capacity_dropped={dropped} " if dropped else "")
+                      + (f"tile_sat={sat * 100:.1f}% " if sat > 0 else "")
+                      + f"t={time.time() - t0:.0f}s", flush=True)
             if adaptive:
                 new_cap = G.adaptive_capacity_target(
                     n_alive, state.capacity, cap_max,
@@ -546,8 +574,9 @@ def train_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     new_cap = max(new_cap, min(state.capacity * 2, cap_max))
                     dropped_seen = dropped
                 if new_cap != state.capacity:
-                    print(f"[face] capacity {state.capacity} -> {new_cap} "
-                          f"(alive {n_alive})", flush=True)
+                    if rank0:
+                        print(f"[face] capacity {state.capacity} -> "
+                              f"{new_cap} (alive {n_alive})", flush=True)
                     state, gopt = G.pack_resize(state, gopt, new_cap,
                                                 keep_slots=det_slots)
             if eval_fn is not None:

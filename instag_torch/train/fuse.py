@@ -1,5 +1,6 @@
-"""Joint fusion fine-tune (counterpart of instag_tpu/train/fuse.py, serial
-path): the step and the ``train_fuse`` loop.
+"""Joint fusion fine-tune (counterpart of instag_tpu/train/fuse.py): the
+step and the ``train_fuse`` loop, serial or ``dp`` frames a step as the
+face's.
 
 The motion nets and the geometry of both clouds are frozen (the nets run
 under ``torch.no_grad``; xyz, scaling and rotation of both clouds and the
@@ -31,7 +32,10 @@ from ..models.lpips import load_lpips_params
 from ..ops.rasterize import RasterizeConfig
 from ..render import composite_fuse, render_motion, render_motion_mouth
 from ..utils.losses import patchify
-from .common import FrameBatch, gaussian_lrs, rgb_loss
+from ..parallel.comm import all_reduce_sum, check_replicas
+from ..parallel.mesh import replicate
+from .common import (FrameBatch, check_data_parallel, gaussian_lrs,
+                     local_block, replica_tensors, rgb_loss)
 
 # appearance-only training: zero learning rate on the frozen attributes
 _FACE_TRAIN = frozenset({"features_dc", "features_rest", "identity",
@@ -84,8 +88,10 @@ class _FuseStep:
                  face_umf: nn.Module, mouth_umf: nn.Module,
                  face_pmf: nn.Module, mouth_pmf: nn.Module,
                  spatial_lr_scale: float, device: str | torch.device,
-                 lpips: nn.Module | None, lpips_patches: tuple[int, ...]):
+                 lpips: nn.Module | None, lpips_patches: tuple[int, ...],
+                 dp: int = 1, group=None):
         self.device = resolve_device(device)
+        self.dp, self.group = dp, group
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.face_umf, self.mouth_umf = _frozen(face_umf), _frozen(mouth_umf)
         self.face_pmf, self.mouth_pmf = _frozen(face_pmf), _frozen(mouth_pmf)
@@ -117,22 +123,41 @@ class _FuseStep:
 
     def __call__(self, face: G.GaussianState, face_gopt: G.AdamState,
                  mouth: G.GaussianState, mouth_gopt: G.AdamState,
-                 batch: FrameBatch, i: int, it: int, patch_idx: int,
+                 batch: FrameBatch, i, it: int, patch_idx: int,
                  use_lpips: float):
         f_leaf, m_leaf = _leaves(face, _FACE_TRAIN), _leaves(mouth,
                                                             _MOUTH_TRAIN)
-        loss, _ = self.loss(f_leaf, m_leaf, batch, i, patch_idx, use_lpips)
-        loss.backward()
+        loss, g_face, g_mouth = self._batch_grads(
+            f_leaf, m_leaf, batch, i if self.dp > 1 else [i], patch_idx,
+            use_lpips)
         lrs = gaussian_lrs(self.opt_cfg, it, self.spatial_lr_scale)
         lrs = dict(lrs, opacity=self.opt_cfg.opacity_lr)
-        fp, face_gopt = G.adam_update(face.params, _grads(f_leaf), face_gopt,
+        fp, face_gopt = G.adam_update(face.params, g_face, face_gopt,
                                       _mask_lrs(lrs, _FACE_TRAIN), face.alive)
-        mp, mouth_gopt = G.adam_update(mouth.params, _grads(m_leaf),
-                                       mouth_gopt,
+        mp, mouth_gopt = G.adam_update(mouth.params, g_mouth, mouth_gopt,
                                        _mask_lrs(lrs, _MOUTH_TRAIN),
                                        mouth.alive)
         return (face.replace(params=fp), face_gopt,
-                mouth.replace(params=mp), mouth_gopt, loss.detach())
+                mouth.replace(params=mp), mouth_gopt, loss)
+
+    def _batch_grads(self, f_leaf, m_leaf, batch, rows, patch_idx,
+                     use_lpips):
+        """The mean loss over the step's ``dp`` frames, of which this rank
+        renders ``rows`` (``[i]`` for a serial step), and both clouds'
+        gradients, summed over the ranks in one bucket."""
+        loss_sum = f_leaf.params.xyz.new_zeros(())
+        for i in rows:
+            loss, _ = self.loss(f_leaf, m_leaf, batch, i, patch_idx,
+                                use_lpips)
+            (loss / self.dp).backward()
+            loss_sum = loss_sum + loss.detach()
+        grads = [getattr(g, n) for g in (_grads(f_leaf), _grads(m_leaf))
+                 for n in G.PARAM_FIELDS]
+        out = all_reduce_sum(grads + [loss_sum / self.dp], self.group)
+        k = len(G.PARAM_FIELDS)
+        return (out[-1], G.GaussianParams(**dict(zip(G.PARAM_FIELDS,
+                                                     out[:k]))),
+                G.GaussianParams(**dict(zip(G.PARAM_FIELDS, out[k:2 * k]))))
 
 
 def make_fuse_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
@@ -141,20 +166,24 @@ def make_fuse_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                    spatial_lr_scale: float,
                    device: str | torch.device = "cuda",
                    lpips: nn.Module | None = None,
-                   lpips_patches: tuple[int, ...] = ()) -> _FuseStep:
+                   lpips_patches: tuple[int, ...] = (), dp: int = 1,
+                   group=None) -> _FuseStep:
     """The fusion step on ``device`` (the nets, both states and the batch
     must live there); LPIPS runs on steps flagged ``use_lpips`` when
     ``lpips`` (a frozen ``models.lpips.LPIPS``) and ``lpips_patches`` are
-    given."""
+    given. ``dp`` and ``group`` as in ``train.face.make_face_step`` (the
+    fusion has no densification statistics)."""
     return _FuseStep(cfg, opt_cfg, face_umf, mouth_umf, face_pmf, mouth_pmf,
-                     spatial_lr_scale, device, lpips, lpips_patches)
+                     spatial_lr_scale, device, lpips, lpips_patches, dp,
+                     group)
 
 
 def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                batch: FrameBatch, face_bundle: dict, mouth_bundle: dict, *,
                log_every: int = 500, seed: int = 0,
                lpips_enabled: bool = True,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               data_parallel: int = 1, group=None) -> dict:
     """Fine-tune the appearance of the face and mouth clouds of
     ``face_bundle`` and ``mouth_bundle`` (the results of ``train_face`` and
     ``train_mouth``: ``state``, ``umf_net``, ``pmf_net``) on the frames of
@@ -163,8 +192,11 @@ def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     second half adds LPIPS (``models.lpips``: random features unless
     converted weights are present). Frames and patch sides draw from
     ``numpy.random.default_rng(seed)``. Returns both states, the four nets,
-    the per-step ``losses`` and the raster ``cfg``."""
+    the per-step ``losses`` and the raster ``cfg``. ``data_parallel`` and
+    ``group`` as in ``train.face.train_face``: each step draws its
+    ``data_parallel`` frames, then the block its patch sides."""
     dev = resolve_device(device)
+    rank0 = check_data_parallel(data_parallel, group)
     if batch.image.device.type != dev.type:
         raise ValueError(f"batch lives on {batch.image.device}, not {dev}")
     _, extent = scene_extent(batch.camera_center.cpu().numpy())
@@ -184,8 +216,9 @@ def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             new_cap = min(max(G._pow2ceil(2 * max(n_alive, 1)), 2048),
                           st.capacity)
             if new_cap != st.capacity:
-                print(f"[fuse] {name} capacity {st.capacity} -> {new_cap} "
-                      f"(alive {n_alive})", flush=True)
+                if rank0:
+                    print(f"[fuse] {name} capacity {st.capacity} -> "
+                          f"{new_cap} (alive {n_alive})", flush=True)
                 st, go = G.pack_resize(st, go, new_cap)
             packed.append((st, go))
         (face, face_gopt), (mouth, mouth_gopt) = packed
@@ -197,7 +230,8 @@ def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     step = make_fuse_step(
         cfg, opt_cfg, face_bundle["umf_net"], mouth_bundle["umf_net"],
         face_bundle["pmf_net"], mouth_bundle["pmf_net"], extent, dev, lpips,
-        patch_sizes if lpips_enabled else ())
+        patch_sizes if lpips_enabled else (), data_parallel, group)
+    replicate((face, mouth), group)
 
     rng = np.random.default_rng(seed)
     losses: list[torch.Tensor] = []
@@ -206,8 +240,12 @@ def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     while it <= iterations:
         end = min(iterations, ((it - 1) // BLOCK + 1) * BLOCK)
         steps = range(it, end + 1)
-        idxs = [int(rng.integers(batch.num_frames)) for _ in steps]
+        rows = [[int(rng.integers(batch.num_frames))
+                 for _ in range(data_parallel)] for _ in steps]
         pidx = [int(rng.integers(len(patch_sizes))) for _ in steps]
+        _, idxs = local_block(batch, [(r, None) for r in rows],
+                              data_parallel, group)
+        idxs = [i for i, _ in idxs]
         block_losses = []
         for s, i, p in zip(steps, idxs, pidx):
             face, face_gopt, mouth, mouth_gopt, loss = step(
@@ -217,10 +255,14 @@ def train_fuse(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         losses.append(torch.stack(block_losses))
         it = end + 1
         if end % log_every < len(steps):
+            check_replicas({**replica_tensors(face), **{
+                k.replace("gaussians", "mouth"): v
+                for k, v in replica_tensors(mouth).items()}}, group)
             recent = torch.cat(losses[-max(1, log_every // BLOCK):]).tolist()
-            print(f"[fuse {end}/{iterations}] "
-                  f"loss={np.mean(recent[-log_every:]):.4f} "
-                  f"t={time.time() - t0:.0f}s", flush=True)
+            if rank0:
+                print(f"[fuse {end}/{iterations}] "
+                      f"loss={np.mean(recent[-log_every:]):.4f} "
+                      f"t={time.time() - t0:.0f}s", flush=True)
 
     return dict(face_state=face, mouth_state=mouth,
                 face_umf_net=face_bundle["umf_net"],

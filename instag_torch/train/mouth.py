@@ -1,6 +1,6 @@
 """Few-shot mouth-interior adaptation (counterpart of
-instag_tpu/train/mouth.py, serial path): the step and the ``train_mouth``
-loop.
+instag_tpu/train/mouth.py): the step and the ``train_mouth`` loop, serial
+or ``dp`` frames a step as the face's.
 
 The mouth branch renders with the face cloud and the face UMF of a trained
 face bundle, both frozen: the face UMF's motion range, at the ``k`` drawn
@@ -46,8 +46,12 @@ from ..ops.rasterize import RasterizeConfig
 from ..render import render_motion_mouth
 from ..utils.general import inverse_sigmoid
 from ..utils.sh import eval_sh
+from ..parallel.comm import check_replicas
+from ..parallel.mesh import replicate
 from .common import (FrameBatch, FrameMeta, HostFrameStore,
-                     gaussian_backward, gaussian_lrs, rect_mask, rgb_loss)
+                     adaptation_step, check_data_parallel,
+                     frame_camera, gaussian_backward,
+                     local_block, rect_mask, replica_tensors, rgb_loss)
 from .optim import pmf_optimizer, umf_optimizer
 
 
@@ -69,8 +73,10 @@ class _MouthStep:
                  umf_net: nn.Module, pmf_net: nn.Module,
                  face_state: G.GaussianState, face_net: nn.Module,
                  spatial_lr_scale: float, device: str | torch.device,
-                 total_iters: int, warm_step: int, long: bool):
+                 total_iters: int, warm_step: int, long: bool, dp: int = 1,
+                 group=None):
         self.device = resolve_device(device)
+        self.dp, self.group = dp, group
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.umf_net, self.pmf_net = umf_net, pmf_net
         self.face_state, self.face_net = face_state, face_net
@@ -121,21 +127,10 @@ class _MouthStep:
             (self.umf_net, self.pmf_net))
 
     def __call__(self, state: G.GaussianState, gopt: G.AdamState,
-                 batch: FrameBatch, i: int, it: int, k: int,
-                 flags: MouthFlags):
-        loss, out, grads, g_off = self.loss_and_grads(state, batch, i, k,
-                                                      flags)
-        lrs = gaussian_lrs(self.opt_cfg, it, self.spatial_lr_scale)
-        params, gopt = G.adam_update(state.params, grads, gopt, lrs,
-                                     state.alive)
-        self.umf_opt.step()
-        self.umf_sched.step()
-        self.pmf_opt.step()
-        visible = out.radii > 0
-        state = G.add_densification_stats(state.replace(params=params),
-                                          g_off, visible)
-        state = G.update_max_radii(state, out.radii, visible)
-        return state, gopt, loss
+                 batch: FrameBatch, i, it: int, k: int, flags: MouthFlags):
+        return adaptation_step(
+            self, state, gopt, i if self.dp > 1 else [i], it,
+            lambda st, off, j: self.loss(st, off, batch, j, k, flags))
 
 
 def make_mouth_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
@@ -144,13 +139,16 @@ def make_mouth_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
                     spatial_lr_scale: float,
                     device: str | torch.device = "cuda",
                     total_iters: int = 10000, warm_step: int = 3000,
-                    long: bool = False) -> _MouthStep:
+                    long: bool = False, dp: int = 1,
+                    group=None) -> _MouthStep:
     """The mouth adaptation step on ``device`` (the nets, both states and
     the batch must live there). ``face_state`` and ``face_net`` stay
     frozen; the UMF's learning-rate schedule runs over ``total_iters``
-    steps with ``warm_step`` and ``long`` (see ``optim.umf_schedule``)."""
+    steps with ``warm_step`` and ``long`` (see ``optim.umf_schedule``).
+    ``dp`` and ``group`` as in ``train.face.make_face_step``."""
     return _MouthStep(cfg, opt_cfg, umf_net, pmf_net, face_state, face_net,
-                      spatial_lr_scale, device, total_iters, warm_step, long)
+                      spatial_lr_scale, device, total_iters, warm_step, long,
+                      dp, group)
 
 
 @torch.no_grad()
@@ -218,7 +216,8 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 pmf_net: nn.Module | None = None, long: bool = False,
                 log_every: int = 500, warm_step: int = 3000, seed: int = 0,
                 resume_bundle: dict | None = None,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                data_parallel: int = 1, group=None) -> dict:
     """Adapt a mouth cloud, the mouth UMF and the mouth PMF to the frames of
     ``batch`` (on ``device``, or a ``HostFrameStore``) over
     ``opt_cfg.iterations`` steps, under the frozen ``face_bundle`` (the
@@ -237,8 +236,11 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     run goes on from its ``iteration + 1`` with fresh draws, as the face
     loop resumes. Returns the state, its Adam state ``gopt``, the nets and
     their optimizer states as bundle dicts, the per-step ``losses``, the
-    raster ``cfg`` and the scene ``extent``."""
+    raster ``cfg`` and the scene ``extent``. ``data_parallel`` and
+    ``group`` as in ``train.face.train_face`` (one ``k`` a step for its
+    frames, as the JAX loop draws it)."""
     dev = resolve_device(device)
+    rank0 = check_data_parallel(data_parallel, group)
     stream = isinstance(batch, HostFrameStore)
     frames = batch.host if stream else batch
     where = batch.device if stream else batch.image.device
@@ -285,7 +287,9 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     step = make_mouth_step(cfg, opt_cfg, umf_net, pmf_net,
                            face_bundle["state"], face_bundle["umf_net"],
                            extent, dev, total_iters=iterations,
-                           warm_step=warm_step, long=long)
+                           warm_step=warm_step, long=long, dp=data_parallel,
+                           group=group)
+    replicate((state, umf_net, pmf_net), group)
     if resume_bundle is not None:
         if "umf_opt_state" in resume_bundle:
             restore_umf_opt(umf_net, step.umf_opt, step.umf_sched,
@@ -309,14 +313,13 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         n = end - it + 1
         draws = []
         for s in range(it, end + 1):
-            i = sample_mouth_curriculum(rng, meta.au25, meta.au25_pcts,
-                                        meta.mouth_px, stack, s, warm_step,
-                                        iterations, 7 if long else 5)
-            draws.append((i, int(rng.integers(10, 51))))
-        blk = batch
-        if stream:
-            blk = batch.gather([i for i, _ in draws])
-            draws = [(j, k) for j, (_, k) in enumerate(draws)]
+            row = [sample_mouth_curriculum(
+                rng, meta.au25, meta.au25_pcts, meta.mouth_px, stack, s,
+                warm_step, iterations, 7 if long else 5)
+                for _ in range(data_parallel)]
+            draws.append((row, int(rng.integers(10, 51))))
+        last = draws[-1][0][-1]
+        blk, draws = local_block(batch, draws, data_parallel, group)
         block_losses = []
         for s, (i, k) in zip(range(it, end + 1), draws):
             state, gopt, loss = step(state, gopt, blk, i, s, k, MouthFlags(
@@ -324,7 +327,6 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             block_losses.append(loss)
         losses.append(torch.stack(block_losses))
         it = end + 1
-        last = draws[-1][0]
 
         # host-side events at block ends
         if end % 1000 == 0:
@@ -340,20 +342,24 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 20.0 if end > opt_cfg.opacity_reset_interval else None,
                 opt_cfg.percent_dense)
             if end > 2000:
-                state = _soften_green(state, blk.camera_center[last])
+                state = _soften_green(
+                    state, frame_camera(frames, last, dev).camera_center)
         if (not long) and end % opt_cfg.opacity_reset_interval == 0 \
                 and end < densify_until:
             state, gopt = G.reset_opacity(state, gopt)
 
         if end % log_every < n:
+            check_replicas(replica_tensors(state, umf=umf_net, pmf=pmf_net),
+                           group)
             recent = losses[-max(1, log_every // interval):]
             vals = torch.cat([state.num_alive().to(torch.float32)[None],
                               *recent]).tolist()
             n_alive, recent = int(vals[0]), vals[1:]
             dropped = state.dropped_children
-            print(f"[mouth {end}/{iterations}] loss="
-                  f"{np.mean(recent[-log_every:]):.4f} pts={n_alive} "
-                  f"t={time.time() - t0:.0f}s", flush=True)
+            if rank0:
+                print(f"[mouth {end}/{iterations}] loss="
+                      f"{np.mean(recent[-log_every:]):.4f} pts={n_alive} "
+                      f"t={time.time() - t0:.0f}s", flush=True)
             if adaptive:
                 new_cap = G.adaptive_capacity_target(
                     n_alive, state.capacity, cap_max,
@@ -362,8 +368,9 @@ def train_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     new_cap = max(new_cap, min(state.capacity * 2, cap_max))
                     dropped_seen = dropped
                 if new_cap != state.capacity:
-                    print(f"[mouth] capacity {state.capacity} -> {new_cap} "
-                          f"(alive {n_alive})", flush=True)
+                    if rank0:
+                        print(f"[mouth] capacity {state.capacity} -> "
+                              f"{new_cap} (alive {n_alive})", flush=True)
                     state, gopt = G.pack_resize(state, gopt, new_cap,
                                                 keep_slots=det_slots)
 

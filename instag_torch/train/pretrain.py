@@ -43,6 +43,11 @@ inert, since every index a block reads, the green prune's camera centre
 included, comes from that identity's own curriculum over its own frames,
 so there is no padding. Losses stay on the device and are read at log
 points only.
+
+With ``identity_parallel`` the loops run the JAX package's
+identity-parallel schedule instead (``_idp_loop``): one identity a rank of
+a process group, every identity trained at each step
+(``parallel.identity_parallel``).
 """
 
 from __future__ import annotations
@@ -66,6 +71,13 @@ from ..models.motion import (MotionNetwork, MouthMotionNetwork,
                              PersonalizedMotionNetwork, init_motion_params)
 from ..ops.rasterize import RasterizeConfig
 from ..render import render, render_motion, render_motion_mouth
+from ..parallel.comm import all_gather, check_replicas, world
+from ..parallel.identity_parallel import (check_identity_ranks,
+                                          gather_identities,
+                                          make_idp_densify,
+                                          make_idp_pretrain_mouth_step,
+                                          make_idp_pretrain_step)
+from ..parallel.mesh import replicate
 from .common import (FrameBatch, FrameMeta, HostFrameStore,
                      build_frame_batch, gaussian_backward, gaussian_lrs,
                      rect_mask, rgb_loss)
@@ -97,10 +109,8 @@ def _update_gaussians(state, gopt, out, grads, g_off, it, opt_cfg,
     params, gopt = G.adam_update(state.params, grads, gopt,
                                  gaussian_lrs(opt_cfg, it, spatial_lr_scale),
                                  state.alive)
-    visible = out.radii > 0
-    state = G.add_densification_stats(state.replace(params=params), g_off,
-                                      visible)
-    return G.update_max_radii(state, out.radii, visible), gopt
+    return G.add_densification_stats(state.replace(params=params), g_off,
+                                     out.radii, out.radii > 0), gopt
 
 
 class _WarmStep:
@@ -378,19 +388,24 @@ def make_pretrain_mouth_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
 
 def _load_identity(model_cfg: ModelConfig, name: str, capacity: int,
                    mouth: bool, seed: int, stream: bool = False,
-                   device: str | torch.device = "cuda"):
+                   device: str | torch.device = "cuda", own: bool = True):
     """One identity's train split under ``model_cfg.source_path``: (records,
     frames as a FrameBatch or a HostFrameStore, the initial cloud, its
     FrameMeta, its scene extent). The cloud starts from
     ``random_init_points(init_num, seed)``, halved and moved down by 0.05
-    for the mouth, at ``model_cfg.sh_degree``."""
+    for the mouth, at ``model_cfg.sh_degree``. An identity that is not
+    this process's ``own`` (another rank's, under identity parallelism)
+    decodes no frame and has neither frames nor cloud (None): its meta and
+    extent alone."""
     dev = resolve_device(device)
     records = load_frames(os.path.join(model_cfg.source_path, name), "train",
                           model_cfg.audio_extractor, -1, device=dev,
-                          host=stream)
+                          host=stream, images=own)
+    _, extent = scene_extent(records)
+    if not own:
+        return records, None, None, FrameMeta.from_records(records), extent
     batch = (HostFrameStore(records, device=dev) if stream
              else build_frame_batch(records, device=dev))
-    _, extent = scene_extent(records)
     xyz, colors = random_init_points(model_cfg.init_num, seed)
     if mouth:
         xyz = xyz / 2.0
@@ -475,8 +490,11 @@ def _auto_stream(source_path: str, data_list: list, threshold: int) -> bool:
 
 def _start(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
            data_list: list, mouth: bool, seed: int, stream, stream_threshold,
-           dev: torch.device, tag: str) -> dict:
-    """The run's sizes and every identity's frames, cloud and Adam state."""
+           dev: torch.device, tag: str, only: int | None = None) -> dict:
+    """The run's sizes and every identity's frames, cloud and Adam state;
+    with ``only`` (an identity-parallel rank), those of identity ``only``
+    alone, and every identity's meta and extent. Identity parallelism
+    refuses streaming."""
     n = len(data_list)
     cap_max = model_cfg.resolve_capacity()
     adaptive = model_cfg.adaptive_capacity
@@ -485,11 +503,14 @@ def _start(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     if stream is None:
         stream = _auto_stream(model_cfg.source_path, data_list,
                               stream_threshold)
+    if stream and only is not None:
+        raise ValueError("identity_parallel is exclusive with streaming")
     if stream:
         print(f"[{tag}] streaming mode: frames stay in host memory, each "
               "block's frames upload on demand", flush=True)
     ids = [_load_identity(model_cfg, name, capacity, mouth,
-                          seed + (7 * k if mouth else k), stream, dev)
+                          seed + (7 * k if mouth else k), stream, dev,
+                          only in (None, k))
            for k, name in enumerate(data_list)]
     r0 = ids[0][0][0]
     return dict(
@@ -503,7 +524,8 @@ def _start(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                             approx_topk=model_cfg.approx_topk),
         batches=[x[1] for x in ids], states=[x[2] for x in ids],
         metas=[x[3] for x in ids], extents=[x[4] for x in ids],
-        gopts=[G.adam_init(x[2].params) for x in ids])
+        gopts=[None if x[2] is None else G.adam_init(x[2].params)
+               for x in ids])
 
 
 def _loop(run: dict, opt_cfg: OptimizationConfig, warm, motion, curriculum,
@@ -598,6 +620,101 @@ def _loop(run: dict, opt_cfg: OptimizationConfig, warm, motion, curriculum,
     return torch.cat(losses).tolist() if losses else []
 
 
+def _idp_loop(run: dict, opt_cfg: OptimizationConfig, warm, step,
+              curriculum, after_densify, densify, warm_per_id: int,
+              log_every: int, seed: int, group, tag: str,
+              mouth: bool) -> list:
+    """The identity-parallel schedule (the JAX package's
+    ``_pretrain_face_idp`` / ``_pretrain_mouth_idp``): warm-up identity by
+    identity, each on its rank, then ``opt_cfg.iterations`` steps that
+    train every identity at once. Every rank replays every identity's
+    draws from the one seeded ``rng`` (frames, and the mouth's rotated
+    partners) and takes its own; ``curriculum(rng, meta, stack, step,
+    warm_step, select_iter)`` draws a frame. Updates this rank's entry of
+    ``run["states"]`` and ``run["gopts"]``; returns the per-step losses,
+    each the mean over the identities."""
+    n, rank = run["n"], world(group)[0]
+    iterations = opt_cfg.iterations
+    densify_until = iterations - 1000
+    select_iter = max(iterations - 10000, 1)
+    interval = opt_cfg.densification_interval
+    rng = np.random.default_rng(seed)
+    stacks: list[list[int]] = [[] for _ in range(n)]
+    state, gopt = run["states"][rank], run["gopts"][rank]
+    batch = run["batches"][rank]
+    t0 = time.time()
+
+    for sid in range(n):
+        it = 1
+        while it <= warm_per_id:
+            end = min(warm_per_id, it + 99)
+            idxs = [curriculum(rng, run["metas"][sid], stacks[sid], s,
+                               warm_per_id + 1, select_iter)
+                    for s in range(it, end + 1)]
+            if sid == rank:
+                state, gopt, _ = warm(state, gopt, batch, idxs,
+                                      range(it, end + 1))
+            it = end + 1
+
+    losses: list[torch.Tensor] = []      # one [steps, n] tensor per block
+    it = 1
+    while it <= iterations:
+        end = min(iterations, ((it - 1) // interval + 1) * interval,
+                  ((it - 1) // 1000 + 1) * 1000)
+        steps = range(it, end + 1)
+        fidx = [[curriculum(rng, run["metas"][k], stacks[k], warm_per_id + s,
+                            warm_per_id, select_iter) for k in range(n)]
+                for s in steps]
+        others = ([[(k + 1 + int(rng.integers(max(n - 1, 1)))) % n
+                    if n > 1 else k for k in range(n)] for _ in steps]
+                  if mouth else [[None] * n for _ in steps])
+        block_losses = []
+        for s, row, orow in zip(steps, fidx, others):
+            flags = PretrainFlags(
+                use_regs=1.0,
+                hair_paint=0.0 if mouth else float(s % 7 != 0))
+            state, gopt, loss = step(state, gopt, batch, row[rank], s, flags,
+                                     orow[rank])
+            block_losses.append(loss)
+        losses.append(all_gather(torch.stack(block_losses), group).T)
+        it = end + 1
+
+        if end % 1000 == 0:
+            state = G.one_up_sh_degree(state)
+        if opt_cfg.densify_from_iter < end < densify_until \
+                and end % interval == 0:
+            floor = 0.05 + 0.25 * end / max(densify_until, 1)
+            state, gopt = densify(state, gopt, floor)
+            state, gopt = after_densify(state, gopt,
+                                        batch.camera_center[fidx[-1][rank]])
+        if end % log_every < len(steps):
+            check_replicas(replica_tensors_of(step.motion), group)
+            pts = all_gather(state.num_alive(), group).tolist()
+            if rank == 0:
+                print(f"[{tag} idp {end}/{iterations}] "
+                      f"loss={float(losses[-1].mean()):.4f} pts={pts} "
+                      f"t={time.time() - t0:.0f}s", flush=True)
+    run["states"][rank], run["gopts"][rank] = state, gopt
+    return torch.cat(losses).mean(-1).tolist() if losses else []
+
+
+def replica_tensors_of(motion) -> dict:
+    """The replicated tensors of an identity-parallel run: the UMF and its
+    EMA."""
+    return {**{f"umf.{k}": p for k, p in motion.umf_net.named_parameters()},
+            **{f"ema.{k}": p for k, p in motion.ema_net.named_parameters()}}
+
+
+def _gather_run(run: dict, step, group) -> None:
+    """Every identity's cloud, Adam state and PMF from its rank, in place
+    of ``run``'s and the step's copies, so that every rank returns the
+    serial loop's result."""
+    rank = world(group)[0]
+    run["states"] = gather_identities(run["states"][rank], group)
+    run["gopts"] = gather_identities(run["gopts"][rank], group)
+    step.refresh_others()
+
+
 def pretrain_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                   data_list: list[str], *, log_every: int = 500,
                   seed: int = 0, warm_per_id: int = 1000,
@@ -605,7 +722,8 @@ def pretrain_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                   stream: bool | None = None, stream_threshold: int = 1000,
                   umf_net: nn.Module | None = None,
                   pmf_nets: list | None = None,
-                  device: str | torch.device = "cuda") -> dict:
+                  device: str | torch.device = "cuda",
+                  identity_parallel: bool = False, group=None) -> dict:
     """Face UMF pre-training over the identities ``data_list`` (directories
     under ``model_cfg.source_path``) on ``device``: ``opt_cfg.iterations``
     steps an identity, the first ``warm_per_id`` an identity in warm-up.
@@ -622,10 +740,22 @@ def pretrain_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     for its trees: ``umf_net``, ``ema_net`` (the EMA of the UMF),
     ``umf_opt_state`` (the UMF optimizer as an optax state dict),
     ``pmf_nets``, and the per-identity ``states`` and ``gopts``, with
-    ``data_list``, the per-step ``losses`` and the raster ``cfg``."""
+    ``data_list``, the per-step ``losses`` and the raster ``cfg``.
+
+    ``identity_parallel`` trains one identity a rank of the process
+    ``group`` (``parallel.identity_parallel``; the JAX package's
+    identity-parallel path): after each identity's warm-up, on its rank,
+    ``opt_cfg.iterations`` steps train every identity at once; at the end
+    every rank holds every identity's cloud, Adam state and PMF, and the
+    losses are the means over the identities. It needs as many ranks as
+    identities and refuses streaming, as in the JAX package."""
     dev = resolve_device(device)
+    only = None
+    if identity_parallel:
+        check_identity_ranks(len(data_list), world(group)[1])
+        only = world(group)[0]
     run = _start(model_cfg, opt_cfg, data_list, False, seed, stream,
-                 stream_threshold, dev, "pretrain_face")
+                 stream_threshold, dev, "pretrain_face", only)
     n = run["n"]
     if umf_net is None:
         umf_net = init_motion_params(MotionNetwork(model_cfg.audio_extractor),
@@ -650,13 +780,27 @@ def pretrain_face(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     def motion(state, gopt, sid, other, blk, i, s, flags):
         return step(state, gopt, sid, blk, i, s, flags)
 
-    losses = _loop(
-        run, opt_cfg, warm, motion,
-        lambda rng, meta, stack, s: _sample_face_curriculum(
-            rng, meta, stack, s, warm_step, run["select_iter"], 15),
-        lambda st, go, campos: _prune_green(st, go, campos),
-        lambda rng, sid: sid, warm_step, identity_block, log_every, seed,
-        dev, "pretrain_face", mean_last=False)
+    if identity_parallel:
+        replicate(umf_net, group)
+        idp = make_idp_pretrain_step(step, group, share_audio_net)
+        gen = torch.Generator(dev).manual_seed(seed + 7)
+        densify = make_idp_densify(opt_cfg, extent, n, group)
+        losses = _idp_loop(
+            run, opt_cfg, warm, idp,
+            lambda rng, meta, stack, s, ws, si: _sample_face_curriculum(
+                rng, meta, stack, s, ws, si, 15),
+            lambda st, go, campos: (st, go),
+            lambda st, go, floor: densify(st, go, gen, floor), warm_per_id,
+            log_every, seed, group, "pretrain_face", mouth=False)
+        _gather_run(run, idp, group)
+    else:
+        losses = _loop(
+            run, opt_cfg, warm, motion,
+            lambda rng, meta, stack, s: _sample_face_curriculum(
+                rng, meta, stack, s, warm_step, run["select_iter"], 15),
+            lambda st, go, campos: _prune_green(st, go, campos),
+            lambda rng, sid: sid, warm_step, identity_block, log_every, seed,
+            dev, "pretrain_face", mean_last=False)
     return dict(umf_net=umf_net, ema_net=ema_net,
                 umf_opt_state=umf_opt_to_dict(umf_net, step.umf_opt,
                                               step.umf_sched),
@@ -671,17 +815,25 @@ def pretrain_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                    stream: bool | None = None, stream_threshold: int = 1000,
                    umf_net: nn.Module | None = None,
                    pmf_nets: list | None = None,
-                   device: str | torch.device = "cuda") -> dict:
+                   device: str | torch.device = "cuda",
+                   identity_parallel: bool = False, group=None) -> dict:
     """Mouth UMF pre-training under a face pre-training result
     ``face_result`` (its per-identity ``states`` and its ``ema_net``, both
     frozen), as ``pretrain_face`` runs the face: identity k's mouth cloud
     starts from ``random_init_points(init_num, seed + 7k)`` halved and
     moved down by 0.05; absent nets start from ``seed + 99`` on. Each motion
     block draws one contrastive partner among the other identities, after
-    its frames. Returns the same keys as ``pretrain_face``."""
+    its frames. Returns the same keys as ``pretrain_face``.
+    ``identity_parallel`` and ``group`` as there: each rank trains its
+    identity under that identity's face cloud, with a contrastive partner
+    a step for every identity (JAX's rotation)."""
     dev = resolve_device(device)
+    only = None
+    if identity_parallel:
+        check_identity_ranks(len(data_list), world(group)[1])
+        only = world(group)[0]
     run = _start(model_cfg, opt_cfg, data_list, True, seed, stream,
-                 stream_threshold, dev, "pretrain_mouth")
+                 stream_threshold, dev, "pretrain_mouth", only)
     n = run["n"]
     if umf_net is None:
         umf_net = init_motion_params(
@@ -716,11 +868,26 @@ def pretrain_mouth(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                        meta.mouth_px, stack, s, warm_step,
                                        run["select_iter"], 7)
 
-    losses = _loop(
-        run, opt_cfg, warm, step, meta_curriculum,
-        lambda st, go, campos: (_soften_green(st, campos), go),
-        draw_other, warm_step, identity_block, log_every, seed, dev,
-        "pretrain_mouth", mean_last=True)
+    if identity_parallel:
+        replicate(umf_net, group)
+        idp = make_idp_pretrain_mouth_step(step, group)
+        gen = torch.Generator(dev).manual_seed(seed + 13)
+        densify = make_idp_densify(opt_cfg, extent, n, group)
+        losses = _idp_loop(
+            run, opt_cfg, warm, idp,
+            lambda rng, meta, stack, s, ws, si: sample_mouth_curriculum(
+                rng, meta.au25, meta.au25_pcts, meta.mouth_px, stack, s, ws,
+                si, 7),
+            lambda st, go, campos: (_soften_green(st, campos), go),
+            lambda st, go, floor: densify(st, go, gen, floor), warm_per_id,
+            log_every, seed, group, "pretrain_mouth", mouth=True)
+        _gather_run(run, idp, group)
+    else:
+        losses = _loop(
+            run, opt_cfg, warm, step, meta_curriculum,
+            lambda st, go, campos: (_soften_green(st, campos), go),
+            draw_other, warm_step, identity_block, log_every, seed, dev,
+            "pretrain_mouth", mean_last=True)
     return dict(umf_net=umf_net, ema_net=ema_net,
                 umf_opt_state=umf_opt_to_dict(umf_net, step.umf_opt,
                                               step.umf_sched),

@@ -71,10 +71,8 @@ def make_train_step(cfg: RasterizeConfig, opt_cfg: OptimizationConfig,
         lrs = gaussian_lrs(opt_cfg, step, spatial_lr_scale)
         params, opt = G.adam_update(state.params, grads, opt, lrs,
                                     state.alive)
-        visible = out.radii > 0
         state = G.add_densification_stats(state.replace(params=params),
-                                          g_off, visible)
-        state = G.update_max_radii(state, out.radii, visible)
+                                          g_off, out.radii, out.radii > 0)
         return state, opt, loss
 
     return train_step

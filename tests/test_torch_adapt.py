@@ -1,6 +1,7 @@
 """The port's single-process chain (``instag_torch/cli/adapt.py``), its
 host-memory frame streaming (``train.common.HostFrameStore``) and the
-adaptation CLIs' refusals, on a generated scene (8 train and 2 val frames
+adaptation CLIs' refusal of a ``--data_parallel`` that the ranks do not
+divide, on a generated scene (8 train and 2 val frames
 at 64x64; 200 initial splats in a capacity of 1024, K=256).
 
 Streaming: the face and mouth loops over 12 steps (densification interval
@@ -99,7 +100,10 @@ def test_adapt_fast_skip_synthesis_writes_the_bundles(scene, tmp_path):
 
 @pytest.mark.parametrize("cli", [train_face, train_mouth, train_fuse_con,
                                  adapt])
-def test_data_parallel_is_refused(cli, tmp_path):
-    with pytest.raises(SystemExit, match="queue 1, item 7"):
+def test_data_parallel_is_refused(cli, tmp_path, monkeypatch):
+    """A ``--data_parallel`` that the world size does not divide is refused
+    before the process group is joined (``torchrun``'s ``WORLD_SIZE``)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="the 2 ranks must divide"):
         cli.main(["-s", str(tmp_path), "-m", str(tmp_path),
-                  "--data_parallel", "2", "--device", "cpu"])
+                  "--data_parallel", "3", "--device", "cpu"])

@@ -2,8 +2,10 @@
 against OpenCV itself, byte for byte, over seeded sizes that shrink and
 grow: the uint8 and float32 bilinear resizes, the integer-factor area
 resize, the nearest resize and ``fillPoly`` (self-intersecting polygons and
-mouth-like octagons, vertices inside the image). The float32 resize is held
-where the width grows less than 8-fold, the domain ``cv_ops`` states."""
+mouth-like octagons, vertices inside the image, and polygons of 3 to 8
+vertices up to half the image outside it). The float32 resize is held
+where ``cv_ops`` states its domain (1 channel; 3 or 4 channels widened
+less than 8-fold) and refuses the rest with ``ValueError``."""
 
 import cv2
 import numpy as np
@@ -44,6 +46,22 @@ def test_linear_float32_is_opencvs(channels):
             img = img[..., 0]
         assert np.array_equal(cv_ops.resize_linear_f32(img, (dw, dh)),
                               cv2.resize(img, (dw, dh))), (h, w, dh, dw)
+
+
+@pytest.mark.parametrize("channels", [2, 3, 4])
+def test_linear_float32_refuses_outside_its_domain(channels):
+    """OpenCV's IPP route rounds 2 channels, and 3 or 4 widened 8-fold or
+    more, otherwise: the port refuses them; 1 channel widened 8-fold and
+    more is held."""
+    rng = np.random.default_rng(20 + channels)
+    for h, w, dh, dw in [(7, 5, 30, 40), (12, 9, 50, 200), (3, 3, 9, 24)]:
+        img = rng.normal(size=(h, w, channels)).astype(np.float32)
+        if channels == 2 or dw >= 8 * w:
+            with pytest.raises(ValueError, match="widened less than 8-fold"):
+                cv_ops.resize_linear_f32(img, (dw, dh))
+        flat = img[..., 0].copy()
+        assert np.array_equal(cv_ops.resize_linear_f32(flat, (dw, dh)),
+                              cv2.resize(flat, (dw, dh)))
 
 
 @pytest.mark.parametrize("factor", [2, 3, 4, 8])
@@ -88,3 +106,27 @@ def test_fill_poly_is_opencvs(kind):
         cv2.fillPoly(want, [pts], 1)
         got = cv_ops.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
         assert np.array_equal(got, want), pts.tolist()
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_fill_poly_outside_the_image_is_opencvs(seed):
+    """Polygons whose vertices reach half the image beyond each side,
+    among them the ones whose clipped edges are horizontal."""
+    rng = np.random.default_rng(seed)
+    for _ in range(600):
+        h, w = (int(v) for v in rng.integers(20, 160, 2))
+        n = int(rng.integers(3, 9))
+        pts = np.stack([rng.integers(-w // 2, w + w // 2, n),
+                        rng.integers(-h // 2, h + h // 2, n)],
+                       -1).astype(np.int32)
+        want = np.zeros((h, w), np.uint8)
+        cv2.fillPoly(want, [pts], 1)
+        got = cv_ops.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
+        assert np.array_equal(got, want), (h, w, pts.tolist())
+    # a clipped edge that is one point: its edge keeps the clipped x
+    pts = np.array([[-24, 86], [159, 53], [53, 108]], np.int32)
+    want = np.zeros((75, 119), np.uint8)
+    cv2.fillPoly(want, [pts], 1)
+    assert want[53:60, 118].all()
+    assert np.array_equal(cv_ops.fill_poly(np.zeros((75, 119), np.uint8),
+                                           pts, 1), want)

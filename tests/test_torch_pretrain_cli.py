@@ -12,7 +12,8 @@ identity, which the CLIs' warm-up of 1000 steps an identity holds whole).
     reads the face bundles the JAX CLI wrote (the clouds bit-equal);
   * ``cli.train_face --pretrain_path`` on the port's EMA bundle starts
     from a UMF bit-equal to the EMA;
-  * ``--identity_parallel`` is refused by every port CLI.
+  * ``--identity_parallel`` with fewer ranks than identities is refused by
+    every port CLI, with the JAX package's message.
 """
 
 import json
@@ -173,6 +174,9 @@ def test_train_face_starts_from_port_ema_bundle(runs, monkeypatch):
 
 @pytest.mark.parametrize("cli", [t_pretrain_cli, t_face_cli, t_mouth_cli])
 def test_identity_parallel_refused(cli, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 7"):
+    """Fewer ranks than identities: JAX's message, before anything loads."""
+    with pytest.raises(ValueError, match=r"identity_parallel needs >= 2 "
+                                         r"devices, have 1"):
         cli.main(["-s", str(tmp_path), "-m", str(tmp_path),
-                  "--identity_parallel", "--device", "cpu"])
+                  "--identity_parallel", "--data_list", "id_a,id_b",
+                  "--device", "cpu"])

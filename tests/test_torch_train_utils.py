@@ -135,9 +135,8 @@ def test_gaussian_adam_and_stats_match_jax():
         jstate = JG.update_max_radii(jstate, jnp.asarray(radii),
                                      jnp.asarray(vis))
         tstate = G.add_densification_stats(tstate, torch.from_numpy(g2d),
+                                           torch.from_numpy(radii),
                                            torch.from_numpy(vis))
-        tstate = G.update_max_radii(tstate, torch.from_numpy(radii),
-                                    torch.from_numpy(vis))
     for k in ("xyz_grad_accum", "denom", "max_radii2d"):
         np.testing.assert_allclose(getattr(tstate, k).numpy(),
                                    np.asarray(getattr(jstate, k)),

@@ -107,9 +107,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
      finite losses that fall, one launch of each kernel per step, a
      densification that changed the live count; one face motion step
      without its D-SSIM term (noise over the background-green windows)
-     through the kernels against plain autograd, the other identity's PMF
-     bit-unchanged by a step, the EMA update on the card equal to the
-     CPU's; each branch's warm-up and motion step alone on the final
+     through the kernels against plain autograd, both fed one cotangent
+     (the step loss's gradient of the rendered image through the plain
+     composite, as phase 15's static check) so that the parameter,
+     offset, UMF and PMF gradients are compared, the two losses compared
+     apart, and the L1 residuals whose signs differ between the two
+     renders counted; the other identity's PMF bit-unchanged by a step, the
+     EMA update on the card equal to the CPU's; each branch's warm-up and motion step alone on the final
      states and one profiled motion step of each; ``python -m
      instag_torch.cli.pretrain --iterations 20`` as a subprocess, its
      bundles' key paths equal to the JAX CLIs'; and ``cli.train_face
@@ -202,8 +206,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
      rasterize (``tests/test_tensor_parallel.py``'s tolerances); (d) one
      rank over NCCL (world size 1, a file rendezvous): the dp=4 loss
      bit-equal to (a)'s, gradients within fp32 summation order (the
-     scatter adds by atomics). Each phase's start is logged as
-     ``[t=... s]``.
+     scatter adds by atomics).
+ 19. the workflow scripts, as a user runs them, started with phase 14 and
+     read after phase 15: ``bash scripts/torch/e2e_from_video.sh <tmp> 20
+     256 40`` (a 20-frame 256x256 capture, ``process --synthetic_gt``,
+     ``cli.adapt`` with 40 steps a stage; exit 0, ``metrics.json`` with
+     finite PSNR and LPIPS, the clip's frames file) and ``python
+     scripts/torch/verify_drive.py`` (the fit's PSNR climb, the probes);
+     each one's wall beside the card's name and power limit, and its
+     processes' kernel launches (each kernel launched), recorded at their
+     exit through a ``sitecustomize`` on their ``PYTHONPATH``.
+Each phase's start is logged as ``[t=... s]``.
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -223,6 +236,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -242,6 +256,7 @@ GRAD_ATOL_FRAC = 5e-4    # top of this fraction of each tensor's max |g|
 SCATTER_TOL = 1e-5       # atomics: the order of the adds changes per run
 EDGE_MAX_SHARE = 0.01    # phase 15: at most 1 % of the pixels on the cut
 FLIP_RTOL = 1e-3         # T_final apart by more: a splat more or fewer
+FLIP_ULPS = 4            # phase 14: an L1 residual this close to 0 is a tie
 WIDE_SPREAD = 0.8        # a cloud over the whole frame: every tile busy
 WIDE_SCALE = 0.01        # (~140k valid slots; the face cloud busies 36)
 WARMUP = 5
@@ -1551,8 +1566,8 @@ class _Started:
     it runs beside the phase's in-process work (the card is 6-25 % busy
     there; PERF.md section 5): ``result()`` waits for it under its time
     limit and returns (a ``CompletedProcess`` with its output, wall s from
-    its start). Its output goes to files, not pipes, which a chatty run
-    would fill."""
+    its start to its exit, however late it is read). Its output goes to
+    files, not pipes, which a chatty run would fill."""
 
     def __init__(self, cmd, timeout, **kw):
         self.out = tempfile.TemporaryFile("w+")
@@ -1560,7 +1575,13 @@ class _Started:
         self.timeout, self.t = timeout, time.perf_counter()
         self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=self.out,
                                      stderr=self.err, text=True, **kw)
+        self.ended = None        # when it exited, seen by a watcher thread
+        threading.Thread(target=self._watch, daemon=True).start()
         _STARTED.append(self)
+
+    def _watch(self):
+        self.proc.wait()
+        self.ended = time.perf_counter()
 
     def result(self):
         try:
@@ -1571,7 +1592,9 @@ class _Started:
             self.proc.wait()
             raise AssertionError(f"{self.proc.args[:3]} ran past "
                                  f"{self.timeout} s")
-        wall = time.perf_counter() - self.t
+        while self.ended is None:          # the watcher's stamp, next
+            time.sleep(0.01)
+        wall = self.ended - self.t
         text = []
         for f in (self.out, self.err):
             f.seek(0)
@@ -1858,6 +1881,63 @@ def _loop_checks(tag, res, steps, launches):
                              f"per step: {launches}")
 
 
+def _pretrain_step_check(k_step, p_step, state, batch, flags, umf, pmf):
+    """Phase 14's kernel against plain check of one pre-training face
+    step of identity 0 on frame 1, as phase 15's static check: both paths
+    are fed one cotangent, the step loss's gradient with respect to the
+    rendered image taken through the plain composite, and their
+    parameter, offset, UMF and PMF gradients are held to ``GRAD_RTOL`` /
+    ``GRAD_ATOL_FRAC``. On a fitted cloud many L1 residuals lie within the
+    two composites' rounding of 0, where L1's gradient may take either
+    sign. Returns (each gradient's worst fraction of the tolerance, the
+    kernel and plain losses, the residual counts: how many of the two
+    renders' residuals differ in sign and how many of those are ties
+    within ``FLIP_ULPS`` ulp of the pixel)."""
+    from instag_torch.models import gaussians as G
+    from instag_torch.train import pretrain as P
+
+    real, seen = P.rgb_loss, {}
+
+    def run(step, rgb):
+        P.rgb_loss = rgb
+        loss, _, g_gauss, g_off = step.loss_and_grads(state, 0, batch, 1,
+                                                      flags)
+        grads = {f: getattr(g_gauss, f) for f in G.PARAM_FIELDS}
+        grads["means2d_offset"] = g_off
+        for tag, net in (("umf", umf), ("pmf", pmf)):
+            for n, p in net.named_parameters():
+                grads[f"{tag}.{n}"] = p.grad.clone()
+        return float(loss), grads
+
+    def kept(tag):
+        def rgb(img, gt, lam):
+            seen[tag] = (img.detach(), gt)
+            return real(img, gt, lam)
+        return rgb
+
+    try:
+        loss_k = run(k_step, kept("kernel"))[0]
+        loss_p = run(p_step, kept("plain"))[0]
+        img_p, gt = seen["plain"]
+        x = img_p.clone().requires_grad_(True)
+        cot, = torch.autograd.grad(
+            real(x, gt, p_step.opt_cfg.lambda_dssim), x)
+        shared = lambda img, gt, lam: (img * cot).sum()   # noqa: E731
+        g_k, g_p = run(k_step, shared)[1], run(p_step, shared)[1]
+    finally:
+        P.rgb_loss = real
+    worst = {n: check_close(f"pre-training face step gradient {n}", g_k[n],
+                            g_p[n], GRAD_RTOL, GRAD_ATOL_FRAC) for n in g_p}
+    r_k, r_p = seen["kernel"][0] - gt, img_p - gt
+    differ = torch.sign(r_k) != torch.sign(r_p)
+    mag = torch.maximum(img_p.abs(), gt.abs())
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    near = differ & (torch.maximum(r_k.abs(), r_p.abs()) <= FLIP_ULPS * ulp)
+    flips = dict(n=r_p.numel(), opposite=int(differ.sum()),
+                 near=int(near.sum()))
+    return worst, loss_k, loss_p, flips
+
+
 def pretraining(card: str, dev: torch.device, keep: list,
                 beside=None) -> tuple:
     """Phase 14: multi-identity pre-training at full width, its checks and
@@ -1960,25 +2040,15 @@ def pretraining(card: str, dev: torch.device, keep: list,
                                        extent, *sched, device=dev)
     flags = P.PretrainFlags(use_regs=1.0, hair_paint=0.0)
     state, gopt = face["states"][0], face["gopts"][0]
-
-    def step_grads(step):
-        loss, _, g_gauss, g_off = step.loss_and_grads(state, 0, batch, 1,
-                                                      flags)
-        grads = {f: getattr(g_gauss, f) for f in G.PARAM_FIELDS}
-        grads["means2d_offset"] = g_off
-        for tag, net in (("umf", umf), ("pmf", pmfs[0])):
-            for n, p in net.named_parameters():
-                grads[f"{tag}.{n}"] = p.grad.clone()
-        return float(loss), grads
-
-    loss_k, grads_k = step_grads(k_l1)
-    loss_p, grads_p = step_grads(p_l1)
-    worst = max(check_close(f"pre-training face step gradient {n}",
-                            grads_k[n], grads_p[n], GRAD_RTOL,
-                            GRAD_ATOL_FRAC) for n in grads_p)
+    worst, loss_k, loss_p, flips = _pretrain_step_check(
+        k_l1, p_l1, state, batch, flags, umf, pmfs[0])
     log(f"  face motion step without D-SSIM, kernels vs plain autograd: "
-        f"loss {loss_k:.6f} vs {loss_p:.6f}; {len(grads_p)} gradient "
-        f"tensors within {worst:.3f} of the tolerance")
+        f"loss {loss_k:.6f} vs {loss_p:.6f}; with one cotangent, "
+        f"{len(worst)} gradient tensors within {max(worst.values()):.3f} "
+        f"of the tolerance (worst {max(worst, key=worst.get)})")
+    log(f"  L1 residuals of the two renders: {flips['opposite']} of "
+        f"{flips['n']} differ in sign, {flips['near']} of them ties within "
+        f"{FLIP_ULPS} ulp of the pixel")
     if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
         raise AssertionError("pre-training step: loss mismatch")
     other = copy.deepcopy(pmfs[1].state_dict())
@@ -3119,6 +3189,127 @@ def photometric_and_extractors(card: str, dev: torch.device, seam: dict):
 
 
 # ---------------------------------------------------------------------------
+# 19. the workflow scripts (scripts/torch/) as processes, as a user runs them
+# ---------------------------------------------------------------------------
+
+E2E_ARGS = ["20", "256", "40"]   # e2e_from_video.sh: frames, size, steps
+SCRIPT_TIMEOUT = 900.0   # each workflow script's own time limit, seconds
+# In each Python process a workflow script starts, this writes the three
+# kernel wrappers' launch counts at exit into $CHIP_SMOKE_LAUNCHES, then
+# hands over to any other sitecustomize on the path.
+_LAUNCH_SITE = """import atexit, importlib.util, json, os, sys
+
+
+def _dump():
+    c = sys.modules.get("instag_torch.ops.composite")
+    s = sys.modules.get("instag_torch.ops.scatter")
+    if c is None:
+        return
+    rec = {"argv": sys.argv, "composite_fwd": c.composite_fwd.launches,
+           "composite_bwd": c.composite_bwd.launches,
+           "scatter_add_tiles": s.scatter_add_tiles.launches if s else 0}
+    path = os.path.join(os.environ["CHIP_SMOKE_LAUNCHES"],
+                        f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+atexit.register(_dump)
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _f = os.path.join(_p or ".", "sitecustomize.py")
+    if os.path.abspath(_p or ".") != _here and os.path.exists(_f):
+        _spec = importlib.util.spec_from_file_location("_next_site", _f)
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+"""
+
+
+def workflow_scripts_start(dev: torch.device) -> dict:
+    """Phase 19, started: ``bash scripts/torch/e2e_from_video.sh`` (a
+    capture of 20 frames at 256x256 through ``process`` and ``cli.adapt``
+    with 40 steps a stage) and ``python scripts/torch/verify_drive.py`` as
+    a user runs them, on the card, each under its own time limit and
+    beside in-process work; every Python process they start records its
+    kernel launches (``_LAUNCH_SITE``)."""
+    tmp = tempfile.TemporaryDirectory()
+    site = os.path.join(tmp.name, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_LAUNCH_SITE)
+    started = {"tmp": tmp}
+    for name, cmd in (
+            ("e2e", ["bash", "scripts/torch/e2e_from_video.sh",
+                     os.path.join(tmp.name, "e2e"), *E2E_ARGS]),
+            ("verify_drive", [sys.executable,
+                              "scripts/torch/verify_drive.py",
+                              "--device", dev.type])):
+        counts = os.path.join(tmp.name, f"launches_{name}")
+        os.makedirs(counts)
+        env = dict(os.environ, CHIP_SMOKE_LAUNCHES=counts, PYTHONPATH=(
+            site + os.pathsep + os.environ.get("PYTHONPATH", "")).rstrip(
+                os.pathsep))
+        started[name] = (_Started(cmd, SCRIPT_TIMEOUT, env=env), counts)
+    return started
+
+
+def _script_launches(counts: str) -> dict:
+    total = dict.fromkeys(("composite_fwd", "composite_bwd",
+                           "scatter_add_tiles"), 0)
+    for name in os.listdir(counts):
+        with open(os.path.join(counts, name)) as f:
+            rec = json.load(f)
+        for k in total:
+            total[k] += rec[k]
+    return total
+
+
+def workflow_scripts(card: str, started: dict) -> dict:
+    """Phase 19, read: each script's exit, outputs, wall and kernel
+    launches. Returns the launches of both scripts' processes."""
+    launches = {}
+    for name in ("verify_drive", "e2e"):
+        bg, counts = started[name]
+        proc, wall = bg.result()
+        lines = (proc.stdout + proc.stderr).strip().splitlines()
+        if proc.returncode != 0:
+            for line in lines[-30:]:
+                log(f"  {name} | {line}")
+            raise AssertionError(f"{name} exited {proc.returncode}")
+        launches[name] = _script_launches(counts)
+        if not all(v > 0 for v in launches[name].values()):
+            raise AssertionError(f"{name}: a kernel was never launched: "
+                                 f"{launches[name]}")
+        if name == "e2e":
+            out = os.path.join(started["tmp"].name, "e2e", "out")
+            with open(os.path.join(out, "metrics.json")) as f:
+                scores = json.load(f)
+            if not all(np.isfinite(scores.get(k, np.nan))
+                       for k in ("psnr", "lpips")):
+                raise AssertionError(f"e2e metrics.json: {scores}")
+            clip = [f for f in ("out.mp4", "out.mp4.frames.npz")
+                    if os.path.exists(os.path.join(out, f))]
+            if not clip:
+                raise AssertionError("e2e: no clip frames file")
+            log(f"[{card}] scripts/torch/e2e_from_video.sh "
+                f"{' '.join(E2E_ARGS)}: exit 0 in {wall:.2f} s wall as a "
+                f"process (beside phases 14-15); PSNR {scores['psnr']:.3f} "
+                f"dB, LPIPS {scores['lpips']:.4f}; {clip[0]} written; "
+                f"kernel launches {launches[name]}")
+        else:
+            fit = [x for x in lines if x.startswith("fit: PSNR")]
+            if not (fit and "VERIFY DRIVE PASSED" in lines):
+                raise AssertionError(f"verify_drive: {lines[-5:]}")
+            log(f"[{card}] scripts/torch/verify_drive.py: exit 0 in "
+                f"{wall:.2f} s wall as a process; {fit[0]}; behind-camera "
+                f"and hash-grid probes passed; kernel launches "
+                f"{launches[name]}")
+    started["tmp"].cleanup()
+    return {k: sum(v[k] for v in launches.values())
+            for k in launches["e2e"]}
+
+
+# ---------------------------------------------------------------------------
 # 18. the parallel modes (parallel/): --data_parallel on one card and on
 # 2 ranks, identity parallelism, tensor-parallel rendering, NCCL
 # ---------------------------------------------------------------------------
@@ -3850,6 +4041,8 @@ def main() -> int:
     later["adaptation_clis"] = clis["all"]
 
     mark(14)
+    # ---- 19. the workflow scripts, beside phases 14 and 15 -------------------
+    scripts = workflow_scripts_start(dev)
     # ---- 14. multi-identity pre-training ------------------------------------
     kept = []
     # phase 15's scene and CLI start beside phase 14's CLI process
@@ -3862,6 +4055,9 @@ def main() -> int:
     static = static_training(card, dev, hard)
     later["static_training"] = static["launches"]
     static_t = static["timed"]
+
+    mark(19)
+    later["workflow_scripts"] = workflow_scripts(card, scripts)
 
     mark(18)
     # ---- 18. the parallel modes -------------------------------------------

@@ -51,7 +51,7 @@ from ..train.mouth import train_mouth
 from .train_face import add_port_args, load_pretrain, start_data_parallel
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = make_parser("Single-process few-shot adaptation")
     parser.add_argument("--long", action="store_true")
     parser.add_argument("--pretrain_path", type=str, default="",
@@ -67,7 +67,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--no_lpips", action="store_true",
                         help="drop the perceptual-loss phases")
     add_port_args(parser)
-    mc, _, oc, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    mc, _, oc, args = parse_all(build_parser(), argv)
     group, dev, rank0 = start_data_parallel(args)
     dp = dict(data_parallel=args.data_parallel, group=group)
     t0 = time.time()

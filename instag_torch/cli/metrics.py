@@ -51,7 +51,7 @@ def _load_lms_dir(path: str) -> np.ndarray:
     return np.stack([np.loadtxt(f) for f in files])
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = argparse.ArgumentParser("metrics")
     parser.add_argument("--pred", required=True)
     parser.add_argument("--gt", required=True)
@@ -62,7 +62,11 @@ def main(argv=None) -> dict:
                              "with the FAN tracker (INSTAG_FAN_WEIGHTS)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
 
     dev = resolve_device(args.device)
     pred = _load_video(args.pred)

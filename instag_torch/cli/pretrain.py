@@ -32,7 +32,7 @@ from .pretrain_face import (add_pretrain_args, identity_list,
                             start_identity_parallel)
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = make_parser("Single-process pre-training chain (face -> mouth)")
     parser.add_argument("--share_audio_net", action="store_true",
                         help="tie every face PMF's audio encoder to the "
@@ -40,7 +40,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--mouth_init_num", type=int, default=5000)
     parser.add_argument("--skip_mouth", action="store_true")
     add_pretrain_args(parser)
-    mc, _, oc, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    mc, _, oc, args = parse_all(build_parser(), argv)
     resolve_device(args.device)     # no card: raise before reading anything
     data_list = identity_list(mc.source_path, args.data_list)
     group, dev, rank0 = start_identity_parallel(args, len(data_list))

@@ -45,7 +45,7 @@ def load_fuse_model(path: str, audio_extractor: str = "deepspeech",
            for k, net in nets.items()})
 
 
-def main(argv=None):
+def build_parser():
     parser = make_parser("Fused synthesis")
     parser.add_argument("--use_train", action="store_true")
     parser.add_argument("--dilate", action="store_true")
@@ -67,7 +67,11 @@ def main(argv=None):
                              "MJPEG + PCM AVI beside out.mp4")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    mc, _, _, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None):
+    mc, _, _, args = parse_all(build_parser(), argv)
     if os.path.exists(os.path.join(mc.model_path, "cfg_args.json")):
         saved = load_cfg(mc.model_path)
         if not mc.source_path:

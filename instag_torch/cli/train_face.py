@@ -74,14 +74,18 @@ def load_pretrain(path: str) -> dict:
     return b["ema_params"] if "ema_params" in b else b["umf_params"]
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = make_parser("Few-shot face adaptation")
     parser.add_argument("--long", action="store_true")
     parser.add_argument("--pretrain_path", type=str, default="")
     parser.add_argument("--start_checkpoint", type=str, default="")
     parser.add_argument("--test_every", type=int, default=0)
     add_port_args(parser)
-    mc, _, oc, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    mc, _, oc, args = parse_all(build_parser(), argv)
     mc.type = "face"
     group, dev, rank0 = start_data_parallel(args)
 

@@ -22,10 +22,14 @@ from ..train.fuse import train_fuse
 from .train_face import add_port_args, start_data_parallel
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = make_parser("Fusion fine-tune")
     add_port_args(parser)
-    mc, _, oc, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    mc, _, oc, args = parse_all(build_parser(), argv)
     group, dev, rank0 = start_data_parallel(args)
 
     face, mouth = (load_branch(os.path.join(

@@ -28,13 +28,17 @@ from ..train.mouth import train_mouth
 from .train_face import add_port_args, load_pretrain, start_data_parallel
 
 
-def main(argv=None) -> dict:
+def build_parser():
     parser = make_parser("Few-shot mouth adaptation")
     parser.add_argument("--long", action="store_true")
     parser.add_argument("--pretrain_path", type=str, default="")
     parser.add_argument("--start_checkpoint", type=str, default="")
     add_port_args(parser)
-    mc, _, oc, args = parse_all(parser, argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    mc, _, oc, args = parse_all(build_parser(), argv)
     mc.type = "mouth"
     group, dev, rank0 = start_data_parallel(args)
 

@@ -426,8 +426,7 @@ def _copy_synthetic_gt(gt_dir: str, base_dir: str, ori_imgs_dir: str,
         shutil.copy(s, os.path.join(dst, os.path.basename(s)))
 
 
-def main(argv=None) -> dict:
-    """Run the tasks; returns each task's wall time in seconds."""
+def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("path", type=str, help="path to video file")
     parser.add_argument("--task", type=int, default=-1, help="-1 = all")
@@ -440,7 +439,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", type=str, default="cuda",
                         help="where JPEGs, the pose solve, the fit, the AVE "
                              "encoder and the extractors run (cuda or cpu)")
-    opt = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> dict:
+    """Run the tasks; returns each task's wall time in seconds."""
+    opt = build_parser().parse_args(argv)
     dev = resolve_device(opt.device)
 
     base_dir = os.path.dirname(opt.path)

@@ -68,8 +68,8 @@ def test_extract_deepspeech_writes_jax_file(wav_file, tmp_path, monkeypatch):
 
 
 def test_extract_ave_matches_jax(wav_file, tmp_path, monkeypatch):
-    variables = JAudioEncoder().init(jax.random.key(7),
-                                     jnp.zeros((1, 80, 16, 1)))
+    variables = jax.jit(JAudioEncoder().init)(jax.random.key(7),
+                                              jnp.zeros((1, 80, 16, 1)))
     flat = flax.traverse_util.flatten_dict(flax.core.unfreeze(variables),
                                            sep="/")
     # non-trivial statistics, so the eval-mode batch norm is exercised

@@ -6,13 +6,15 @@ LPIPS from both packages' one ``.npz`` of the JAX package's seed-0
 random-feature parameters).
 
 The JAX CLIs initialise their nets with flax from ``jax.random.key(seed)``,
-which the port cannot draw, so parity runs through resume: the JAX face CLI
-trains 10 steps, and both packages' CLIs resume its bundle to 25 steps. The
-mouth runs in a directory holding the port's 10-step face bundle: the JAX
-mouth CLI trains 10 steps on it, and both resume that bundle to 25. Both
-fusion CLIs then run 10 steps (LPIPS from step 6) on the port's face
-bundle and the port's resumed mouth bundle, and the port's fusion CLI also
-runs on the two bundles the JAX package resumed. Densification starts 1000
+which the port cannot draw, so parity runs through resume: the JAX face
+CLI trains 10 steps, and both packages' CLIs resume its bundle to 25 steps
+(JAX to port); the port's face CLI also trains 10 steps, whose log is held
+against the JAX run's. The mouth runs in a directory holding the port's
+10-step face bundle: the port's mouth CLI trains 10 steps on it, and both
+packages resume that bundle to 25 (port to JAX). Both fusion CLIs then run
+10 steps (LPIPS from step 6) on the port's face bundle and the port's
+resumed mouth bundle, and the port's fusion CLI also runs on the two
+bundles the JAX package resumed. Densification starts 1000
 steps before the end of a run, so none of these runs densifies. The val
 reporter, on in every face run with a model path, is held against the JAX
 reporter on one state.
@@ -136,12 +138,13 @@ def runs(tmp_path_factory):
         out["jax_face_25"] = (str(root / "jax_face_25"), j_face[-1])
         out["port_face_25"] = (str(root / "port_face_25"), port_cli(
             t_face_cli, root / "port_face_25", *start))
-        # mouth, under the port's face bundle: JAX 10 steps; both resume
         pf = root / "port_face"
         out["port_face"] = (str(pf), port_cli(t_face_cli, pf, "--iterations",
                                               "10"))
-        jax_cli(j_mouth_cli, pf, "--iterations", "10")
-        out["jax_mouth"] = (str(pf), j_mouth[-1])
+        # mouth, under the port's face bundle: the port 10 steps; both
+        # resume its bundle to 25
+        out["port_mouth"] = (str(pf), port_cli(t_mouth_cli, pf,
+                                               "--iterations", "10"))
         start = ["--iterations", "25", "--start_checkpoint",
                  str(pf / "chkpnt_mouth_latest.pkl")]
         jm = _copy(pf, root / "jax_mouth_25", "chkpnt_face_latest.pkl")
@@ -196,11 +199,12 @@ def test_fuse_cli_matches_jax(runs):
 
 
 def test_bundles_read_across_packages(runs):
-    """The JAX mouth CLI read the port's face bundle and the JAX fusion CLI
-    the port's face and mouth bundles; the port read the JAX face and
-    mouth bundles to resume and to fuse. Each bundle, read by the other
+    """The JAX CLIs read the port's face and mouth bundles to resume the
+    mouth and to fuse; the port read the JAX face bundle to resume and the
+    JAX face and mouth bundles to fuse. Each bundle, read by the other
     package, holds the writer's cloud."""
-    for name, which in (("port_face", "face"), ("port_mouth_25", "mouth"),
+    for name, which in (("port_face", "face"), ("port_mouth", "mouth"),
+                        ("port_mouth_25", "mouth"), ("jax_face", "face"),
                         ("jax_face_25", "face"), ("jax_mouth_25", "mouth")):
         path = os.path.join(runs[name][0], f"chkpnt_{which}_latest.pkl")
         res = runs[name][1]
@@ -209,7 +213,7 @@ def test_bundles_read_across_packages(runs):
                   JC.load_bundle(path)["state"]))
         np.testing.assert_array_equal(np.asarray(st.params.xyz),
                                       np.asarray(res["state"].params.xyz))
-    assert runs["jax_mouth"][1]["losses"] and runs["jax_fuse"][1]["losses"]
+    assert runs["jax_mouth_25"][1]["losses"] and runs["jax_fuse"][1]["losses"]
 
 
 def test_bundle_key_manifest(runs):
@@ -218,23 +222,25 @@ def test_bundle_key_manifest(runs):
     tests/test_torch_pretrain_cli.py's), and every port bundle has their
     key paths."""
     jax_keys = {w: key_paths(_bundle(runs, n, w)) for w, n in (
-        ("face", "jax_face"), ("mouth", "jax_mouth"), ("fuse", "jax_fuse"))}
+        ("face", "jax_face"), ("mouth", "jax_mouth_25"),
+        ("fuse", "jax_fuse"))}
     manifest = json.loads(KEYS.read_text())
     assert {w: manifest[w] for w in jax_keys} == jax_keys
     for w, names in (("face", ("port_face", "port_face_25")),
-                     ("mouth", ("port_mouth_25",)),
+                     ("mouth", ("port_mouth", "port_mouth_25")),
                      ("fuse", ("port_fuse", "port_fuse_on_jax"))):
         for n in names:
             assert key_paths(_bundle(runs, n, w)) == jax_keys[w], n
 
 
 def test_cli_artifacts_and_reporter_logs(runs):
-    for name in ("jax_face", "port_face"):
+    for name, it in (("jax_face", 10), ("port_face", 10),
+                     ("jax_face_25", 25), ("port_face_25", 25)):
         d = pathlib.Path(runs[name][0])
         assert json.loads((d / "cfg_args.json").read_text())["type"] == "face"
-        assert (d / "point_cloud" / "iteration_10_face" /
+        assert (d / "point_cloud" / f"iteration_{it}_face" /
                 "point_cloud.ply").exists()
-        assert (d / "val_renders" / "val_10.png").exists()
+        assert (d / "val_renders" / f"val_{it}.png").exists()
     assert (pathlib.Path(runs["port_mouth_25"][0]) / "point_cloud" /
             "iteration_25_mouth" / "point_cloud.ply").exists()
 

@@ -49,10 +49,10 @@ def test_plain_backward_matches_pallas_vjp(n_chan, n_aux):
     g = np.random.default_rng(9).normal(
         size=(T, n_chan + 2 + n_aux, 256)).astype(np.float32)
     static = CompositeStatic(16, TILES_X, n_chan, n_aux, interpret=True)
-    _, vjp = jax.vjp(lambda f: composite_tiles_fused(static, f,
-                                                     jnp.asarray(cnt)),
-                     jnp.asarray(feats))
-    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    # under one jit: eager JAX interprets the kernel one operation at a time
+    ref = np.asarray(jax.jit(lambda f, c, g: jax.vjp(
+        lambda f: composite_tiles_fused(static, f, c), f)[1](g)[0])(
+            jnp.asarray(feats), jnp.asarray(cnt), jnp.asarray(g)))
 
     f = torch.from_numpy(feats).requires_grad_(True)
     out = CompositeFunction.apply(f, torch.from_numpy(cnt), TILES_X, n_chan,

@@ -94,8 +94,9 @@ def grid_renderer():
     d = rng.normal(size=(256, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     net = JGridRenderer()
-    params = jax.device_get(net.init(jax.random.key(0), jnp.asarray(x),
-                                     jnp.asarray(d)))
+    # flax's init under one jit: eager, it runs ~3600 operations one by one
+    params = jax.device_get(jax.jit(net.init)(jax.random.key(0),
+                                              jnp.asarray(x), jnp.asarray(d)))
     # the init table is +-1e-4; spread it so the grid shapes the output
     emb = params["params"]["encoder"]["embeddings"]
     params["params"]["encoder"]["embeddings"] = rng.uniform(

@@ -24,22 +24,65 @@ def _modules():
         yield ".".join(parts)
 
 
-def test_import_leaves_jax_out_of_sys_modules():
-    code = ("import importlib, sys\n"
-            f"for m in {list(_modules())!r}:\n"
-            "    importlib.import_module(m)\n"
-            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-            "assert not bad, bad\n"
-            "print('ok', len(sys.modules))\n")
+def _fresh_codes() -> dict:
+    """The code each fresh-process import check runs."""
+    return {
+        "all": ("import importlib, sys\n"
+                f"for m in {list(_modules())!r}:\n"
+                "    importlib.import_module(m)\n"
+                f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+                "assert not bad, bad\n"
+                "print('ok', len(sys.modules))\n"),
+        "static": ("import importlib, sys\n"
+                   f"for m in {['instag_torch.train.static'] + NEW_MODULES!r}:\n"
+                   "    importlib.import_module(m)\n"
+                   f"    bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+                   "    assert not bad, (m, bad)\n"),
+        "extractors": ("import importlib, sys\n"
+                       "sys.modules['cv2'] = None\n"
+                       f"for m in {EXTRACTOR_MODULES!r}:\n"
+                       "    importlib.import_module(m)\n"
+                       f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+                       "assert not bad, bad\n")}
+
+
+@pytest.fixture(scope="module")
+def fresh_imports(tmp_path_factory):
+    """Each check of ``_fresh_codes`` in a fresh process, all started at
+    once (each spends its seconds importing torch): {name: (return code,
+    output)}."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.startswith("ok")
+    out = tmp_path_factory.mktemp("fresh_imports")
+    procs = {}
+    for name, code in _fresh_codes().items():
+        log = open(out / f"{name}.log", "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT, text=True), log)
+    done = {}
+    for name, (proc, log) in procs.items():
+        try:
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        done[name] = (proc.returncode, log.read())
+        log.close()
+    return done
+
+
+def test_import_leaves_jax_out_of_sys_modules(fresh_imports):
+    code, out = fresh_imports["all"]
+    assert code == 0, out
+    assert out.startswith("ok")
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "scripts" / "torch").glob("*.py")]))
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -119,20 +162,13 @@ NEW_MODULES = ["instag_torch.ops.freq", "instag_torch.ops.encoding",
                "instag_torch.data.synthetic_hard"]
 
 
-def test_static_slice_modules_load_no_jax():
+def test_static_slice_modules_load_no_jax(fresh_imports):
     """The modules of the static-training slice are in the source scan,
     and ``import instag_torch.train.static`` in a fresh process, then the
     slice's other modules, load no JAX."""
     assert set(NEW_MODULES) <= set(_modules())
-    code = ("import importlib, sys\n"
-            f"for m in {['instag_torch.train.static'] + NEW_MODULES!r}:\n"
-            "    importlib.import_module(m)\n"
-            f"    bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
-            "    assert not bad, (m, bad)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
+    code, out = fresh_imports["static"]
+    assert code == 0, out
 
 
 def test_static_slice_entry_points_default_to_the_card(monkeypatch,
@@ -160,21 +196,13 @@ EXTRACTOR_MODULES = ["instag_torch.data_utils." + m for m in (
     "landmarks", "face_parsing", "easyportrait_fpn", "priors", "process")]
 
 
-def test_preprocessing_modules_load_without_jax_or_opencv():
+def test_preprocessing_modules_load_without_jax_or_opencv(fresh_imports):
     """The photometric fit's and the learned extractors' modules are in the
     source scan, and load in a fresh process where OpenCV cannot import,
     with no JAX."""
     assert set(EXTRACTOR_MODULES) <= set(_modules())
-    code = ("import importlib, sys\n"
-            "sys.modules['cv2'] = None\n"
-            f"for m in {EXTRACTOR_MODULES!r}:\n"
-            "    importlib.import_module(m)\n"
-            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
-            "assert not bad, bad\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
+    code, out = fresh_imports["extractors"]
+    assert code == 0, out
 
 
 def test_preprocessing_entry_points_default_to_the_card(monkeypatch,

@@ -87,8 +87,10 @@ def test_lpips_matches_jax(jax_lpips, size):
     def j_loss(x):
         return jnp.sum(model.apply(params, x, jnp.asarray(b))
                        * jnp.arange(1.0, 4.0))
-    ref = np.asarray(model.apply(params, jnp.asarray(a), jnp.asarray(b)))
-    ref_g = np.asarray(jax.grad(j_loss)(jnp.asarray(a)))
+    # under one jit each: eager JAX compiles every operation on its own
+    ref = np.asarray(jax.jit(model.apply)(params, jnp.asarray(a),
+                                          jnp.asarray(b)))
+    ref_g = np.asarray(jax.jit(jax.grad(j_loss))(jnp.asarray(a)))
 
     net = _port_lpips(params)
     x = torch.from_numpy(a).requires_grad_(True)
@@ -119,7 +121,8 @@ def test_load_lpips_params_reads_the_jax_npz(jax_lpips, tmp_path,
             for _ in range(2))
     np.testing.assert_allclose(
         net(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
-        np.asarray(model.apply(params, jnp.asarray(a), jnp.asarray(b))),
+        np.asarray(jax.jit(model.apply)(params, jnp.asarray(a),
+                                        jnp.asarray(b))),
         rtol=RTOL)
 
 

@@ -36,17 +36,21 @@ def scene():
     texp = jnp.asarray(0.5 * rng.normal(size=(m.n_tex,)), jnp.float32)
     light = np.zeros(27, np.float32)
     light[:3], light[3:6] = 1.5, 0.35
-    vcs, cols = [], []
-    for i in range(3):
-        geo = JF.geometry(m, idp, jnp.asarray(0.5 * rng.normal(
-            size=(m.n_exp,)), jnp.float32))
-        vc = transform_points(geo, jnp.asarray(0.1 * rng.normal(size=3),
-                                               jnp.float32),
+
+    @jax.jit        # one compile for the three frames, not one an operation
+    def frame(exp, euler):
+        vc = transform_points(JF.geometry(m, idp, exp), euler,
                               jnp.asarray([0.01, -0.01, 0.85], jnp.float32))
         shade = jnp.maximum(JF.sh_shading(JF.vertex_normals(vc, m.tris),
                                           jnp.asarray(light)), 0.0)
+        return vc, jnp.clip(JF.texture(m, texp) * shade, 0, 1)
+    vcs, cols = [], []
+    for i in range(3):
+        exp = jnp.asarray(0.5 * rng.normal(size=(m.n_exp,)), jnp.float32)
+        vc, col = frame(exp, jnp.asarray(0.1 * rng.normal(size=3),
+                                         jnp.float32))
         vcs.append(np.asarray(vc))
-        cols.append(np.asarray(jnp.clip(JF.texture(m, texp) * shade, 0, 1)))
+        cols.append(np.asarray(col))
     return m.tris, np.stack(vcs), np.stack(cols)
 
 

@@ -102,7 +102,7 @@ def test_audio_nets_match_jax():
         params = flax_tree(tnet, rng)
         assert _shapes(params) == _shapes(
             jax.eval_shape(jnet.init, jax.random.key(0), jnp.asarray(inp)))
-        ref = np.asarray(jnet.apply(params, jnp.asarray(inp)))
+        ref = np.asarray(jax.jit(jnet.apply)(params, jnp.asarray(inp)))
         load_motion_net(tnet, params, device="cpu")
         with torch.no_grad():
             out = tnet(torch.from_numpy(inp)).numpy()

@@ -38,6 +38,7 @@ and K=256 so that no tile is cut.
     own test_streaming_matches_preloaded tolerance).
 """
 
+import contextlib
 import copy
 import os
 
@@ -140,29 +141,28 @@ def tree_close(ours: dict, ref: dict, rtol: float, atol_frac: float = 0.0):
             atol=atol_frac * float(np.abs(r).max()), err_msg=k)
 
 
-class _Captured(Exception):
-    pass
+@contextlib.contextmanager
+def umf_transforms_kept(seen: dict):
+    """Keep the per-label AdamW transforms that ``pretrain_face`` builds
+    inline for its UMF (its first ``optax.multi_transform``) in
+    ``seen["transforms"]``, and let the call go on."""
+    real = optax.multi_transform
+
+    def keep(transforms, labels):
+        seen.setdefault("transforms", transforms)
+        return real(transforms, labels)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(optax, "multi_transform", keep)
+        yield seen
+    assert real is optax.multi_transform
 
 
 @pytest.fixture(scope="module")
-def jax_umf_transforms(root):
-    """The per-label AdamW transforms ``pretrain_face`` builds inline, taken
-    from one call (stopped there) with 30 iterations an identity."""
-    seen = {}
-    real = optax.multi_transform
-
-    def capture(transforms, labels):
-        seen["transforms"] = transforms
-        raise _Captured
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(optax, "multi_transform", capture)
-        with pytest.raises(_Captured):
-            JP.pretrain_face(
-                JModelConfig(source_path=root, init_num=50, capacity=256,
-                             max_per_tile=K, approx_topk=False),
-                JOptConfig(**LOOP_OPT), IDS)
-    assert real is optax.multi_transform
-    return seen["transforms"]
+def jax_umf_transforms(face_runs):
+    """The per-label AdamW transforms of the JAX loop's UMF, taken from
+    ``face_runs``' call (30 iterations an identity): one JAX loop traced
+    for both."""
+    return face_runs["transforms"]
 
 
 def _meta(rng, n=12):
@@ -424,13 +424,14 @@ def port_pretrain_face(root: str, umf_p, pmf_p, trace=None, **kw):
 @pytest.fixture(scope="module")
 def face_runs(root):
     """The JAX loop, and the port's from the JAX loop's starting nets."""
-    ref = JP.pretrain_face(model_configs(root)[0], JOptConfig(**LOOP_OPT),
-                           IDS, **LOOP_KW)
+    with umf_transforms_kept({}) as seen:
+        ref = JP.pretrain_face(model_configs(root)[0],
+                               JOptConfig(**LOOP_OPT), IDS, **LOOP_KW)
     umf_p, pmf_p = jax_start_nets("face", 0, len(IDS))
     trace = []
     ours = port_pretrain_face(root, umf_p, pmf_p, trace=trace)
     return dict(ref=jax.device_get(ref), ours=ours, umf_p=umf_p,
-                pmf_p=pmf_p, trace=trace)
+                pmf_p=pmf_p, trace=trace, transforms=seen["transforms"])
 
 
 def test_pretrain_face_losses_and_masks_match_jax(face_runs):

@@ -51,8 +51,9 @@ from tests.test_torch_motion import flax_tree
 from tests.test_torch_pretrain_face import (  # noqa: F401
     EMA_PART, IDS, K, LOOP_KW, LOOP_OPT, LOSS_RTOL, SIZE, check_step_grads,
     ema_parting,
-    identity_batch, jax_start_nets, jax_umf_transforms, model_configs,
-    port_nets, port_pretrain_face, root, step_cloud, tree_close, umf_tx)
+    identity_batch, jax_start_nets, model_configs, port_nets,
+    port_pretrain_face, root, step_cloud, tree_close, umf_transforms_kept,
+    umf_tx)
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 MOUTH_OPT = dict(LOOP_OPT, iterations=20, position_lr_max_steps=40)
@@ -127,15 +128,24 @@ def test_mouth_motion_step_matches_jax(root, jax_umf_transforms):
 def shared_face_runs(root):
     """``pretrain_face`` with ``share_audio_net`` in both packages; the JAX
     result stays on the device for the JAX mouth loop."""
-    ref = JP.pretrain_face(model_configs(root)[0], JOptConfig(**LOOP_OPT),
-                           IDS, share_audio_net=True, **LOOP_KW)
+    with umf_transforms_kept({}) as seen:
+        ref = JP.pretrain_face(model_configs(root)[0],
+                               JOptConfig(**LOOP_OPT), IDS,
+                               share_audio_net=True, **LOOP_KW)
     umf_p, pmf_p = jax_start_nets("face", 0, len(IDS))
     ours = port_pretrain_face(root, umf_p, pmf_p, share_audio_net=True)
-    return ref, ours
+    return ref, ours, seen["transforms"]
+
+
+@pytest.fixture(scope="module")
+def jax_umf_transforms(shared_face_runs):
+    """The JAX loop's UMF transforms (30 iterations an identity), from
+    ``shared_face_runs``' call: one JAX loop traced for both."""
+    return shared_face_runs[2]
 
 
 def test_share_audio_net_matches_jax(shared_face_runs):
-    ref, ours = shared_face_runs
+    ref, ours, _ = shared_face_runs
     np.testing.assert_allclose(ours["losses"], ref["losses"],
                                rtol=LOSS_RTOL)
     for t, j in zip(ours["states"], ref["states"]):

@@ -29,6 +29,20 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+@pytest.fixture(scope="module")
+def once():
+    """``once(key, fn)``: the JAX reference ``fn()`` of ``key``, computed
+    once a module, so that a test's kernel and plain cases share one
+    trace of it."""
+    refs = {}
+
+    def get(key, fn):
+        if key not in refs:
+            refs[key] = jax.device_get(fn())
+        return refs[key]
+    return get
+
+
 def _close(ours, ref, names=("image", "depth", "normal", "alpha", "extra")):
     for name in names:
         np.testing.assert_allclose(getattr(ours, name).numpy(),
@@ -39,14 +53,15 @@ def _close(ours, ref, names=("image", "depth", "normal", "alpha", "extra")):
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 @pytest.mark.parametrize("sh_deg", [0, 2])
-def test_rasterize_matches_jax(sh_deg, backend):
+def test_rasterize_matches_jax(sh_deg, backend, once):
     view, full, campos, tanfov = make_camera(H, W)
     scene = make_scene(n=150, sh_deg=sh_deg, seed=5)
     means, opac, scales, rots, shs = scene
     bg = jnp.array([0.15, 0.25, 0.35], jnp.float32)
-    ref = jax.jit(lambda *a: J.rasterize(_jax_cfg(), *a, shs=shs,
-                                         sh_degree=sh_deg))(
-        means, opac, scales, rots, view, full, campos, tanfov, tanfov, bg)
+    ref = once(("rasterize", sh_deg), lambda: jax.jit(
+        lambda *a: J.rasterize(_jax_cfg(), *a, shs=shs, sh_degree=sh_deg))(
+            means, opac, scales, rots, view, full, campos, tanfov, tanfov,
+            bg))
     tan = torch.tensor(np.float32(tanfov))
     out = R.rasterize(_port_cfg(backend), *map(_t, (means, opac, scales,
                                                      rots, view, full,
@@ -59,7 +74,7 @@ def test_rasterize_matches_jax(sh_deg, backend):
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 @pytest.mark.parametrize("light", [False, True])
-def test_composite_prepared_with_aux_matches_jax(light, backend):
+def test_composite_prepared_with_aux_matches_jax(light, backend, once):
     view, full, campos, tanfov = make_camera(H, W)
     means, opac, scales, rots, shs = make_scene(n=150, sh_deg=1, seed=7)
     bg = jnp.array([0.0, 1.0, 0.0], jnp.float32)
@@ -73,7 +88,8 @@ def test_composite_prepared_with_aux_matches_jax(light, backend):
         return J.composite_prepared(_jax_cfg(), prep, opac, colors, bg,
                                     light=light, aux_colors=aux)
 
-    ref, ref_aux = jax.jit(jax_fn)(means, scales, rots)
+    ref, ref_aux = once(("aux", light),
+                        lambda: jax.jit(jax_fn)(means, scales, rots))
     cfg = _port_cfg(backend)
     tan = torch.tensor(np.float32(tanfov))
     prep = R.prepare(cfg, _t(means), _t(scales), _t(rots), _t(view),
@@ -139,7 +155,7 @@ def test_reused_selection_matches_jax():
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 @pytest.mark.parametrize("with_aux", [False, True])
-def test_gradients_match_jax(with_aux, backend):
+def test_gradients_match_jax(with_aux, backend, once):
     """Gradients of every differentiable input, on the scene and loss of
     tests/test_pallas_composite.py::test_gradients_match_xla. With aux
     channels in the loss, the geometry must see none of their gradient:
@@ -173,7 +189,8 @@ def test_gradients_match_jax(with_aux, backend):
         return loss(jnp, out, aux_img, jnp.asarray(tgt))
 
     args = (means, opac, scales, rots, shs, offset, jnp.asarray(aux))
-    ref = jax.jit(jax.grad(jax_loss, argnums=range(7)))(*args)
+    ref = once(("grads", with_aux), lambda: jax.jit(
+        jax.grad(jax_loss, argnums=range(7)))(*args))
 
     m, o, sc, r, sh, off, a = (_t(x).requires_grad_(True) for x in args)
     tan = torch.tensor(np.float32(tanfov))

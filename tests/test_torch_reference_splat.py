@@ -116,6 +116,12 @@ def test_rasterize_matches_oracle(backend, sh_deg):
                                    err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def jax_refs():
+    """JAX references a test's kernel and plain cases share: traced once."""
+    return {}
+
+
 def _cov6(scales, rots):
     """R S^2 R^T as (c00, c01, c02, c11, c12, c22) [N, 6]."""
     R = quat_to_rotmat(safe_normalize(torch.from_numpy(rots))).double()
@@ -141,7 +147,7 @@ def test_cov3d_precomp_matches_scales_rotations():
 
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
-def test_cov3d_precomp_image_and_gradient_match_jax(backend):
+def test_cov3d_precomp_image_and_gradient_match_jax(backend, jax_refs):
     H = W = 32
     means, opac, scales, rots, shs = scene(n=60, seed=3)
     view, full, campos, tanfov = camera()
@@ -158,8 +164,10 @@ def test_cov3d_precomp_image_and_gradient_match_jax(backend):
                           cov3d_precomp=c)
         return jnp.sum(out.image * weights), out.image
 
-    (_, j_img), j_grad = jax.value_and_grad(j_loss, has_aux=True)(
-        jnp.asarray(cov6))
+    if "cov3d" not in jax_refs:
+        jax_refs["cov3d"] = jax.device_get(jax.jit(jax.value_and_grad(
+            j_loss, has_aux=True))(jnp.asarray(cov6)))
+    (_, j_img), j_grad = jax_refs["cov3d"]
     c = torch.from_numpy(cov6).requires_grad_(True)
     out = rasterize(RasterizeConfig(H, W, max_per_tile=64, backend=backend),
                     *_torch(means, opac, scales, rots, view, full, campos),

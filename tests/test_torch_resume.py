@@ -18,6 +18,8 @@ bit-equal through both packages' bundles; bundles of the same state byte
 for byte equal.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -88,7 +90,9 @@ class _Port:
             TC.restore_pmf_opt(self.net, self.opt, d)
 
 
+@functools.partial(jax.jit, static_argnums=0)
 def _jax_step(tx, state, params, grads):
+    # under one jit: eager JAX dispatches each leaf's update on its own
     updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state,
                                params)
     return optax.apply_updates(params, updates), state

@@ -163,7 +163,8 @@ def test_selection_stats_match_jax():
     args = [np.array(a) for a in (state.params.xyz, state.get_scaling(),
                                   state.get_rotation())]
     for k in (16, 256):
-        ref = j_selection_stats(
+        # under one jit: eager JAX compiles every operation on its own
+        ref = jax.jit(j_selection_stats, static_argnums=0)(
             JConfig(64, 64, max_per_tile=k, approx_topk=False),
             *map(jnp.asarray, args + mats), active=state.alive)
         ours = selection_stats(RasterizeConfig(64, 64, max_per_tile=k),

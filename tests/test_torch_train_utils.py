@@ -53,7 +53,7 @@ def test_losses_match_jax(scale):
         return        # the blown-up pair's gradient is cancellation noise
     x = ta.clone().requires_grad_(True)
     TL.ssim(x, tb).backward()
-    ref = jax.grad(JL.ssim)(jnp.asarray(a), jnp.asarray(b))
+    ref = jax.jit(jax.grad(JL.ssim))(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-6 * float(np.abs(ref).max()))
 

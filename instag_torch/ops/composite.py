@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils.spans import span
 
 ALPHA_MIN = 1.0 / 255.0
 T_MIN = 1e-4
@@ -264,10 +265,12 @@ class CompositeFunction(torch.autograd.Function):
                 tile: int = 16):
         ctx.save_for_backward(feats, cnt)
         ctx.static = (tiles_x, n_chan, n_aux, tile)
-        return composite_fwd(feats, cnt, tiles_x, n_chan, n_aux, tile)
+        with span("composite.fwd"):
+            return composite_fwd(feats, cnt, tiles_x, n_chan, n_aux, tile)
 
     @staticmethod
     def backward(ctx, g):
         feats, cnt = ctx.saved_tensors
-        dfeats = composite_bwd(feats, cnt, g.contiguous(), *ctx.static)
+        with span("composite.bwd"):
+            dfeats = composite_bwd(feats, cnt, g.contiguous(), *ctx.static)
         return dfeats, None, None, None, None, None

@@ -26,6 +26,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.spans import spanned
+
 # torch-ngp coherent hashing primes
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
            2165219737)
@@ -151,6 +153,7 @@ def _encode_dense_2d(levels, embeddings, x01, shift: float, smooth: bool):
     return out.reshape(out.shape[0], -1)
 
 
+@spanned("hashgrid.encode")
 def hashgrid_encode(cfg: HashGridConfig, embeddings: torch.Tensor,
                     x: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
     """embeddings [total_params, level_dim], x [N, input_dim] in

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.sh import eval_sh
+from ..utils.spans import span, spanned
 from .composite import CompositeFunction
 from .scatter import scatter_add_tiles
 
@@ -89,6 +90,7 @@ class RasterizeOutput(NamedTuple):
     extra: torch.Tensor     # [1, H, W] accumulated extra_attrs
 
 
+@spanned("rasterize.project")
 def project_gaussians(cfg: RasterizeConfig, means3d, scales, rotations,
                       viewmatrix, projmatrix, campos, tanfovx, tanfovy,
                       active=None, cov3d_precomp=None) -> Projected:
@@ -236,6 +238,7 @@ def _tile_hits(cfg: RasterizeConfig, proj: Projected):
                        & (ymin[None, :] <= y1[:, None]))
 
 
+@spanned("rasterize.select")
 def _tile_select(cfg: RasterizeConfig, proj: Projected):
     """Per-tile front-most-K selection: (ids [T, K] int32, valid [T, K]
     bool), nearest first; valid is a prefix of each row."""
@@ -459,7 +462,9 @@ class TileGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ids, cnt = ctx.saved_tensors
-        return scatter_add_tiles(g.contiguous(), ids, cnt, ctx.n), None, None
+        with span("scatter.add"):
+            acc = scatter_add_tiles(g.contiguous(), ids, cnt, ctx.n)
+        return acc, None, None
 
 
 def tile_features(px, py, proj: Projected, opac, colors, extra_attrs, ids,
@@ -500,6 +505,7 @@ def _tiles_to_image_cm(cfg: RasterizeConfig, flat, ch: int):
     return img[:, :cfg.image_height, :cfg.image_width]
 
 
+@spanned("render.sh")
 def sh_colors(means3d, campos, shs, sh_degree: int):
     """SH -> clamped RGB at per-splat view directions."""
     dirs = means3d - campos[None, :]

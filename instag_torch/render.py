@@ -27,6 +27,7 @@ from .ops.rasterize import (Prepared, RasterizeConfig, RasterizeOutput,
                             composite_prepared, prepare, rasterize,
                             sh_colors)
 from .utils.general import safe_normalize
+from .utils.spans import span, spanned
 
 
 @dataclasses.dataclass
@@ -112,11 +113,13 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
 
     p_preds = None
     if personalized or align_structural:
-        p_preds = pmf(xyz0, aud, exp)
+        with span("motion.pmf"):
+            p_preds = pmf(xyz0, aud, exp)
     if align_structural:
         xyz = xyz + p_preds["p_xyz"] * align_s
 
-    preds = umf(xyz, aud, exp)
+    with span("motion.umf"):
+        preds = umf(xyz, aud, exp)
     d_xyz, d_scale, d_rot = preds["d_xyz"], preds["d_scale"], preds["d_rot"]
     if personalized:
         d_xyz = d_xyz + p_preds["d_xyz"]
@@ -155,6 +158,7 @@ def render_motion(cfg: RasterizeConfig, cam: Camera, state: GaussianState,
     return MotionRender(out, preds, p_preds, attn, p_attn, sel, prep)
 
 
+@spanned("render.move_feature")
 def _move_feature(face_preds: dict, face_state: GaussianState, k: int,
                   k_max: int) -> torch.Tensor:
     """[1, 3] = [k-th largest, k-th smallest, range] of the alive face
@@ -203,7 +207,8 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
 
     p_preds = None
     if personalized or align_structural:
-        p_preds = pmf(xyz0, aud)
+        with span("motion.pmf"):
+            p_preds = pmf(xyz0, aud)
     if align_structural:
         xyz = xyz + p_preds["p_xyz"] * align_s
 
@@ -211,10 +216,12 @@ def render_motion_mouth(cfg: RasterizeConfig, cam: Camera,
         face_preds = face_motion_cache
     else:
         zero_exp = torch.zeros((6,), dtype=xyz.dtype, device=xyz.device)
-        face_preds = face_umf(face_state.params.xyz, aud, zero_exp)
+        with span("motion.umf"):
+            face_preds = face_umf(face_state.params.xyz, aud, zero_exp)
     move = _move_feature(face_preds, face_state, k, k_max)
 
-    preds = mouth_umf(xyz, aud, move)
+    with span("motion.umf"):
+        preds = mouth_umf(xyz, aud, move)
     d_xyz = preds["d_xyz"]
     if personalized:
         d_xyz = d_xyz + p_preds["d_xyz"]

@@ -32,6 +32,7 @@ from .models.motion import (MotionNetwork, MouthMotionNetwork,
 from .ops.rasterize import RasterizeConfig, tile_select
 from .render import (Camera, composite_fuse, dilate_alpha, render_motion,
                      render_motion_mouth)
+from .utils.spans import span, spanned
 
 DISPATCH_CHUNK = 4
 FETCH_WINDOW = 64           # frames copied to the host at a time
@@ -55,21 +56,25 @@ def _render(cfg: RasterizeConfig, model: SynthesisModel, cam: Camera,
     the (face, mouth) selections to reuse or the selection callables."""
     face_sel, mouth_sel = sels if sels is not None else (None, None)
     green = torch.tensor([0.0, 1.0, 0.0], device=aud.device)
-    fr = render_motion(cfg, cam, model.face_state, umf=model.face_umf,
-                       aud=aud, exp=exp, bg=green, pmf=model.face_pmf,
-                       personalized=personalized, align=True,
-                       selection=face_sel)
-    mr = render_motion_mouth(cfg, cam, model.mouth_state,
-                             mouth_umf=model.mouth_umf,
-                             face_state=model.face_state, face_umf=None,
-                             aud=aud, bg=green, pmf=model.mouth_pmf,
-                             personalized=personalized, align=True,
-                             face_motion_cache=fr.motion,
-                             selection=mouth_sel)
-    alpha_m = mr.out.alpha
-    dil = dilate_alpha(alpha_m, 13) if dilate else alpha_m
-    image = composite_fuse(fr.out.image, fr.out.alpha, mr.out.image, alpha_m,
-                           green, torso_bg, mouth_dilate_alpha=dil)
+    with span("render.face"):
+        fr = render_motion(cfg, cam, model.face_state, umf=model.face_umf,
+                           aud=aud, exp=exp, bg=green, pmf=model.face_pmf,
+                           personalized=personalized, align=True,
+                           selection=face_sel)
+    with span("render.mouth"):
+        mr = render_motion_mouth(cfg, cam, model.mouth_state,
+                                 mouth_umf=model.mouth_umf,
+                                 face_state=model.face_state, face_umf=None,
+                                 aud=aud, bg=green, pmf=model.mouth_pmf,
+                                 personalized=personalized, align=True,
+                                 face_motion_cache=fr.motion,
+                                 selection=mouth_sel)
+    with span("render.fuse"):
+        alpha_m = mr.out.alpha
+        dil = dilate_alpha(alpha_m, 13) if dilate else alpha_m
+        image = composite_fuse(fr.out.image, fr.out.alpha, mr.out.image,
+                               alpha_m, green, torso_bg,
+                               mouth_dilate_alpha=dil)
     return image, fr, mr
 
 
@@ -102,6 +107,7 @@ def make_synthesis_fn(cfg: RasterizeConfig, dilate: bool = False,
     dev = resolve_device(device)
 
     @torch.inference_mode()
+    @spanned("synth.frame")
     def synth_one(model: SynthesisModel, cam: Camera, aud: torch.Tensor,
                   exp: torch.Tensor, torso_bg: torch.Tensor, sels=None):
         if model.face_state.params.xyz.device.type != dev.type:
@@ -110,11 +116,12 @@ def make_synthesis_fn(cfg: RasterizeConfig, dilate: bool = False,
         image, fr, mr = _render(cfg, model, cam.to(dev), aud.to(dev),
                                 exp.to(dev), torso_bg.to(dev), personalized,
                                 dilate, sels)
-        if variants:
-            img = torch.stack([to_u8(image), to_u8(fr.out.image),
-                               to_u8(mr.out.image)])
-        else:
-            img = to_u8(image)
+        with span("render.fuse"):
+            if variants:
+                img = torch.stack([to_u8(image), to_u8(fr.out.image),
+                                   to_u8(mr.out.image)])
+            else:
+                img = to_u8(image)
         return img, (fr.selection, mr.selection), (fr.prep, mr.prep)
 
     def synth(model: SynthesisModel, cam: Camera, aud: torch.Tensor,

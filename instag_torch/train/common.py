@@ -20,6 +20,7 @@ from ..parallel.mesh import shard_rows
 from ..render import Camera
 from ..utils.general import expon_lr
 from ..utils.losses import l1_loss, ssim
+from ..utils.spans import span, spanned
 
 
 @dataclasses.dataclass
@@ -261,8 +262,10 @@ def frames_backward(loss_fn, state: G.GaussianState, nets, rows, dp: int):
     for row in rows:
         off = torch.zeros((state.capacity, 2), device=state.params.xyz.device,
                           requires_grad=True)
-        loss, out = loss_fn(st, off, row)
-        (loss / dp).backward()
+        with span("train.forward"):
+            loss, out = loss_fn(st, off, row)
+        with span("train.backward"):
+            (loss / dp).backward()
         loss_sum = loss_sum + loss.detach()
         outs.append(out)
         offs.append(off.grad * dp)
@@ -308,6 +311,7 @@ def adaptation_grads(step, state: G.GaussianState, rows, frame_loss):
             (accum, denom, slots.amax(0)))
 
 
+@spanned("train.step")
 def adaptation_step(step, state: G.GaussianState, gopt: G.AdamState,
                     rows, it: int, frame_loss):
     """``adaptation_grads``, then one update of the Gaussians (Adam at
@@ -315,12 +319,15 @@ def adaptation_step(step, state: G.GaussianState, gopt: G.AdamState,
     applies alike, and the statistics added. Returns ``(state, gopt, mean
     loss)``."""
     loss, grads, stats = adaptation_grads(step, state, rows, frame_loss)
-    params, gopt = G.adam_update(
-        state.params, grads, gopt,
-        gaussian_lrs(step.opt_cfg, it, step.spatial_lr_scale), state.alive)
-    step.umf_opt.step()
-    step.umf_sched.step()
-    step.pmf_opt.step()
+    with span("optim.gaussians"):
+        params, gopt = G.adam_update(
+            state.params, grads, gopt,
+            gaussian_lrs(step.opt_cfg, it, step.spatial_lr_scale),
+            state.alive)
+    with span("optim.nets"):
+        step.umf_opt.step()
+        step.umf_sched.step()
+        step.pmf_opt.step()
     return G.add_frame_stats(state.replace(params=params), *stats), gopt, loss
 
 

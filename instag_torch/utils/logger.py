@@ -2,8 +2,8 @@
 and histogram summaries as lines of ``metrics.jsonl``, and TensorBoard
 through ``torch.utils.tensorboard`` when it imports (the card's machine has
 no tensorboard: the log then says so once). The port's traces are
-``torch.profiler``'s (``bench_utils``), so the JAX profiler window is not
-here."""
+``torch.profiler``'s, with the layers' named spans of ``utils/spans.py``
+in them, so the JAX profiler window is not here."""
 
 from __future__ import annotations
 
